@@ -7,23 +7,40 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
 
 1. build: compile every CUDA C++ kernel of the port with nvcc (one process
    per source, started together); the Triton kernel compiles at its first
-   launch in phase 2;
+   launch in phase 2. Set-up then publishes gemma3-1b at its published size
+   (26 layers, bf16, random weights from seed 0) into a fresh Workspace and
+   loads it once on the host (``device=None``) as the byte reference;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    (flash attention: the reference's kernel sweep cases plus the serving
    shapes, f32 within 1e-4 and bf16 within 2e-2; rmsnorm: the sweep cases
    plus the serving shapes, f32 within 1e-5 and bf16 within 3e-2 + 2**-7
-   relative), and time kernel, plain version and one PyTorch library call;
-3. main path: ``repro_torch.launch.serve.serve`` with gemma3-1b at its
-   published size (26 layers, bf16) in a fresh Workspace: publish, load with
-   ``strategy="stable"``, copy to the card, prefill 4 prompts of 1024
-   tokens and decode 32 new tokens. The kernel launch counts of that run
-   must be exactly 26 flash-attention launches per prefill and 105 rmsnorm
-   launches per prefill and per decode step. Its prefill logits must be
-   finite and, against a float32 plain-attention run on the card, no
-   further off than 1.5x the bf16 plain-attention run;
+   relative; paged_reloc_copy: the reference's cases and gemma3-1b's real
+   page table over a 2.0 GB arena, exactly equal), and time kernel, plain
+   version and one PyTorch library call;
+3. main path: ``repro_torch.launch.serve.serve`` with that app: load with
+   ``strategy="stable"``, which builds the arena on the card with one
+   paged_reloc_copy launch (the params are views of it), prefill 4 prompts
+   of 1024 tokens and decode 32 new tokens. The launch counts of that run
+   must be exactly 1 paged copy, 26 flash-attention launches per prefill
+   and 105 rmsnorm launches per prefill and per decode step; every slot of
+   the device arena must equal the host image's bytes. Its prefill logits
+   must be finite and, against a float32 plain-attention run on the card,
+   no further off than 1.5x the bf16 plain-attention run;
 4. small input: gemma3-1b's smoke config on the card (kernels) and on the
    CPU (plain versions, which the CPU tests hold against the JAX
-   reference) give the same logits within 1e-4 and the same greedy tokens.
+   reference) give the same logits within 1e-4 and the same greedy tokens;
+   and the same ``serve_loop`` (float32, mixed prompt lengths, 2 slots)
+   gives identical completions on both, greedy and sampled;
+5. serving across an epoch: ``ServeEngine.from_workspace(strategy=
+   "stable", cache_len=1056)`` then ``serve_loop(max_batch=4)`` over 12
+   greedy requests (prompt lengths drawn with seed 0 from 256..1024, 32 new
+   tokens each). After handing over the 6th request the source commits a
+   ``v2`` bundle (seed 1); ``epoch_watch``/``adopt_epoch`` flip the engine
+   at a request boundary, rebuilding the arena on the card. It must
+   complete 12, flip exactly once with no abort, launch the paged copy
+   twice, flash attention 26 times per admission and rmsnorm 105 times per
+   admission and per step, and serve from params byte-equal to the v2 host
+   image after the flip. Rates leave out the commit's own wall time.
 
 Output: progress lines, then the kernel record as one JSON line, the
 card's name and power limit, and last the contract line
@@ -67,6 +84,12 @@ RMS_TOL = {"float32": (1e-5, 0.0), "bfloat16": (3e-2, 2.0**-7)}  # (abs, rel)
 ARCH, BATCH, PROMPT, NEW = "gemma3-1b", 4, 1024, 32
 FLASH_PER_PREFILL = 26
 RMS_PER_STEP = 105            # 4 per layer (attn, q, k, mlp) + final norm
+# serving across an epoch (phase 5)
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_CACHE = 12, 4, 1056
+SERVE_LENS = (256, 512, 768, 1024)
+FLIP_AFTER = 6                # the source commits v2 after this many requests
+# the reference's paged-copy cases (tests/test_kernels.py): (pages, copies)
+PAGED_CASES = [(4, 2), (64, 64), (128, 37)]
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 tensor flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -121,9 +144,10 @@ def time_ms(fn, min_total_ms: float = 40.0) -> float:
 def build_kernels() -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
 
     t0 = time.perf_counter()
-    logs = build.build_all([fa.SOURCE])
+    logs = build.build_all([fa.SOURCE, prc.SOURCE])
     wall = time.perf_counter() - t0
     for source, text in logs.items():
         usage = [ln.strip() for ln in text.splitlines() if "Used" in ln]
@@ -348,18 +372,155 @@ def check_rmsnorm(cfg) -> dict:
     }
 
 
+def check_paged(table) -> dict:
+    """paged_reloc_copy against its plain version, exactly: the reference's
+    cases, then gemma3-1b's own page table (``table``) over a random blob."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.objects import PAGE_BYTES, align_up
+    from repro_torch.core.relocation import blob_layout
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+
+    def pages(n):
+        return torch.from_numpy(
+            rng.integers(-(2**31), 2**31 - 1, (n, 8, 128), dtype=np.int32)).to(dev)
+
+    cases = [(n, m, rng.integers(0, n, m).astype(np.int32),
+              rng.permutation(n)[:m].astype(np.int32)) for n, m in PAGED_CASES]
+    cases.append((8, 1, np.array([0], np.int32), np.array([3], np.int32)))  # untouched
+    cases.append((8, 0, np.zeros(0, np.int32), np.zeros(0, np.int32)))      # n == 0
+    for n, m, src, dst in cases:
+        blob, arena = pages(max(n, 4)), pages(n)
+        want = prc.paged_reloc_copy_plain(blob, arena.clone(), src, dst)
+        got = prc.paged_reloc_copy(blob, arena, src, dst)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"paged_reloc_copy differs from its plain version on ({n}, {m})")
+    log(f"paged_reloc_copy: {len(cases)} reference cases equal the plain version")
+
+    # the serving shape: gemma3-1b's page table over a 2.0 GB arena
+    src, dst = table._pt_src, table._pt_dst
+    n = int(src.size)
+    _, blob_pages = blob_layout(table)
+    arena_pages = align_up(table.arena_size, PAGE_BYTES) // PAGE_BYTES
+    g = torch.Generator(device=dev).manual_seed(3)
+    blob = torch.randint(-(2**31), 2**31 - 1, (blob_pages, 8, 128), generator=g,
+                         dtype=torch.int32, device=dev)
+    arena = torch.zeros((arena_pages, 8, 128), dtype=torch.int32, device=dev)
+    want = prc.paged_reloc_copy_plain(blob, torch.zeros_like(arena), src, dst)
+    prc.paged_reloc_copy(blob, arena, src, dst)
+    torch.cuda.synchronize()
+    if not torch.equal(arena, want):
+        fail("paged_reloc_copy differs from its plain version at the serving shape")
+    del want
+    log(f"paged_reloc_copy: gemma3-1b page table ({n} pages, {n * PAGE_BYTES} "
+        "bytes) equals the plain version")
+
+    src_d = torch.from_numpy(src).to(dev)
+    dst_d = torch.from_numpy(dst).to(dev)
+    src_l, dst_l = src_d.long(), dst_d.long()
+    nbytes = n * PAGE_BYTES
+    flat_blob, flat_arena = blob.view(-1), arena.view(-1)
+    m = min(blob.numel(), arena.numel(), nbytes // 4)
+    row = {
+        "ms": time_ms(lambda: prc.launch(blob, arena, src_d, dst_d)),
+        "wrapper_ms": time_ms(lambda: prc.paged_reloc_copy(blob, arena, src, dst)),
+        "plain_ms": time_ms(lambda: prc.paged_reloc_copy_plain(blob, arena, src_l, dst_l)),
+        "library_ms": time_ms(
+            lambda: arena.index_copy_(0, dst_l, blob.index_select(0, src_l))),
+        "copy_ms": time_ms(lambda: flat_arena[:m].copy_(flat_blob[:m])),
+    }
+    row["copy_bytes"] = 4 * m
+    row["bound_ms"], row["bound_by"] = bound_ms(2.0 * nbytes, 0.0, BF16_FLOPS)
+    row["achieved_tb_s"] = 2.0 * nbytes / (row["ms"] * 1e-3) / 1e12
+    row["copy_tb_s"] = 2.0 * 4 * m / (row["copy_ms"] * 1e-3) / 1e12
+    log(f"paged_reloc_copy n={n}: kernel {row['ms']:.4f} ms ({row['achieved_tb_s']:.3f} "
+        f"TB/s), with host checks + index upload {row['wrapper_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, index_copy_ {row['library_ms']:.4f} ms, contiguous "
+        f"copy_ {row['copy_ms']:.4f} ms ({row['copy_tb_s']:.3f} TB/s), bound "
+        f"{row['bound_ms']:.4f} ms (bytes)")
+    del blob, arena
+    torch.cuda.empty_cache()
+    return {
+        "name": "paged_reloc_copy",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_reloc_copy.cu",
+        "replaces": "src/repro/kernels/paged_reloc_copy/paged_reloc_copy.py:43",
+        "max_abs_err": 0.0,          # held to exact equality above
+        "pages": n,
+        **row,
+    }
+
+
+# --------------------------------------------------------------- set-up
+def publish(cfg, root) -> tuple:
+    """A Workspace at ``root`` holding gemma3-1b's app (weights from seed 0,
+    made on the card), and the app loaded on the host: the byte reference."""
+    from repro_torch.launch.serve import publish_model
+    from repro_torch.link import Workspace
+
+    ws = Workspace.open(root)
+    t0 = time.perf_counter()
+    app = publish_model(ws, cfg, device="cuda")
+    t1 = time.perf_counter()
+    host = ws.load(app, strategy="stable")
+    log(f"set-up: published {app} in {t1 - t0:.1f} s; host load "
+        f"{host.stats.startup_s:.3f} s")
+    return ws, app, host, {"publish_s": t1 - t0, "host_load_s": host.stats.startup_s}
+
+
+def load_split(stats) -> dict:
+    return {k: getattr(stats, k) for k in (
+        "strategy", "table_load_s", "upload_s", "kernel_s", "host_rows_s", "io_s",
+        "startup_s", "bytes_loaded")}
+
+
+def slots_equal(params, host) -> None:
+    """Every param (one arena slot each) byte-equal to the host image's."""
+    import numpy as np
+    import torch
+
+    for name, arr in host.tensors.items():
+        want = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+        got = params[name].reshape(-1).view(torch.uint8)
+        if not torch.equal(got, want.to(got.device)):
+            fail(f"device arena slot {name!r} differs from the host image")
+
+
+def counts() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
+    from repro_torch.kernels.rmsnorm import ops as rn
+
+    return {"flash_attention": fa.launches, "rmsnorm": rn.launches,
+            "paged_reloc_copy": prc.launches}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
+    from repro_torch.kernels.rmsnorm import ops as rn
+
+    fa.launches = rn.launches = prc.launches = 0
+
+
 # --------------------------------------------------------------- phase 3
-def profile_generate(engine, prompts) -> dict:
-    """One more steady generate under torch.profiler: device time by kernel
-    and the card's busy share of the wall time (the profiler's own cost
-    lengthens the wall, so the idle share it gives is an upper bound)."""
+def profiled(run, what: str) -> dict:
+    """``run()`` under torch.profiler: device time by kernel and the card's
+    busy share of the wall time (the profiler's own cost lengthens the
+    wall, so the idle share it gives is an upper bound). ``run`` ends in a
+    synchronisation and returns a dict of its own figures."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, stats = engine.generate(prompts, NEW)
+        figures = run()
         wall = time.perf_counter() - t0
     kernels = [
         (e.key, e.self_device_time_total / 1e3, e.count)
@@ -370,89 +531,94 @@ def profile_generate(engine, prompts) -> dict:
     kernels.sort(key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
     out = {
-        "wall_s": wall, "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+        "wall_s": wall, **figures,
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (wall * 1e3) if busy_ms else None,
         "top_kernels_ms": [(k[:90], ms, n) for k, ms, n in kernels[:20]],
     }
-    log(f"profiled generate: wall {wall * 1e3:.1f} ms, device busy "
+    log(f"profiled {what}: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_ms:.1f} ms, idle share {out['idle_share']}")
     for name, ms, n in out["top_kernels_ms"][:8]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name}")
     return out
 
 
-def main_path(cfg) -> dict:
+def main_path(cfg, ws, host) -> dict:
     import torch
 
     from repro_torch import models
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.rmsnorm import ops as rn
     from repro_torch.launch.serve import serve
-    from repro_torch.link import Workspace
 
-    root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
-    try:
-        ws = Workspace.open(root)
-        fa.launches = rn.launches = 0
-        t0 = time.perf_counter()
-        run = serve(cfg, ws, batch=BATCH, prompt_len=PROMPT, max_new=NEW,
-                    strategy="stable", device="cuda")
-        wall = time.perf_counter() - t0
-        counts = {"flash_attention": fa.launches, "rmsnorm": rn.launches}
-        want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW}
-        log(f"main path ran in {wall:.1f} s; launches {counts}, expected {want}")
-        if counts != want:
-            fail(f"kernel launches {counts} != {want}")
-        s = run.summary
-        if tuple(run.tokens.shape) != (BATCH, NEW) or not (
-            0 <= run.tokens.min() and run.tokens.max() < cfg.vocab_size
-        ):
-            fail(f"bad tokens {run.tokens.shape}")
-        engine = run.engine
-        # steady state: the same generate again, kernels and cuBLAS warm
-        _, steady = engine.generate(run.prompts, NEW)
-        profile = profile_generate(engine, run.prompts)
+    zero_counts()
+    t0 = time.perf_counter()
+    run = serve(cfg, ws, batch=BATCH, prompt_len=PROMPT, max_new=NEW,
+                strategy="stable", device="cuda")
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
+            "paged_reloc_copy": 1}
+    log(f"main path ran in {wall:.1f} s; launches {got}, expected {want}")
+    if got != want:
+        fail(f"kernel launches {got} != {want}")
+    s = run.summary
+    if tuple(run.tokens.shape) != (BATCH, NEW) or not (
+        0 <= run.tokens.min() and run.tokens.max() < cfg.vocab_size
+    ):
+        fail(f"bad tokens {run.tokens.shape}")
+    engine = run.engine
+    slots_equal(engine.params, host)
+    split = load_split(engine.load_stats)
+    log(f"device arena equals the host image in all {len(host.tensors)} slots; "
+        f"load split {json.dumps(split)}")
+    # steady state: the same generate again, kernels and cuBLAS warm
+    _, steady = engine.generate(run.prompts, NEW)
 
-        tokens = torch.as_tensor(run.prompts, device="cuda")
-        with torch.inference_mode():
-            kern, _ = models.prefill(cfg, engine.params, {"tokens": tokens}, impl="kernel")
-            plain, _ = models.prefill(cfg, engine.params, {"tokens": tokens}, impl="naive")
-            p32 = {n: t.float() for n, t in engine.params.items()}
-            ref, _ = models.prefill(cfg.replace(dtype="float32"), p32,
-                                    {"tokens": tokens}, impl="naive")
-            del p32
-        if not bool(torch.isfinite(kern).all()):
-            fail("prefill logits are not finite")
-        err_k = (kern.float() - ref).abs().max().item()
-        err_p = (plain.float() - ref).abs().max().item()
-        log(f"prefill logits vs f32 plain: kernel path {err_k:.5f}, bf16 plain "
-            f"path {err_p:.5f}")
-        if not err_k <= 1.5 * err_p:
-            fail(f"kernel path error {err_k} > 1.5 x bf16 plain error {err_p}")
-        result = {
-            "launches": counts,
-            "wall_s": wall,
-            "load_strategy": s["load_strategy"],
-            "load_s": s["load_s"],
-            "prefill_s": s["prefill_s"],
-            "decode_s": s["decode_s"],
-            "tok_per_s": s["tok_per_s"],
-            "steady_prefill_s": steady.prefill_s,
-            "steady_decode_s": steady.decode_s,
-            "steady_tok_per_s": steady.tok_per_s,
-            "logits_err_kernel": err_k,
-            "logits_err_bf16_plain": err_p,
-            "profile": profile,
-            "n_params": models.n_params(cfg),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        }
-        log("main path: " + json.dumps({k: result[k] for k in (
-            "load_s", "prefill_s", "decode_s", "tok_per_s", "steady_prefill_s",
-            "steady_decode_s", "steady_tok_per_s")}))
-        return result
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    def steady_generate():
+        _, stats = engine.generate(run.prompts, NEW)
+        return {"prefill_s": stats.prefill_s, "decode_s": stats.decode_s}
+
+    profile = profiled(steady_generate, "generate")
+
+    tokens = torch.as_tensor(run.prompts, device="cuda")
+    with torch.inference_mode():
+        kern, _ = models.prefill(cfg, engine.params, {"tokens": tokens}, impl="kernel")
+        plain, _ = models.prefill(cfg, engine.params, {"tokens": tokens}, impl="naive")
+        p32 = {n: t.float() for n, t in engine.params.items()}
+        ref, _ = models.prefill(cfg.replace(dtype="float32"), p32,
+                                {"tokens": tokens}, impl="naive")
+        del p32
+    if not bool(torch.isfinite(kern).all()):
+        fail("prefill logits are not finite")
+    err_k = (kern.float() - ref).abs().max().item()
+    err_p = (plain.float() - ref).abs().max().item()
+    log(f"prefill logits vs f32 plain: kernel path {err_k:.5f}, bf16 plain "
+        f"path {err_p:.5f}")
+    if not err_k <= 1.5 * err_p:
+        fail(f"kernel path error {err_k} > 1.5 x bf16 plain error {err_p}")
+    result = {
+        "launches": got,
+        "wall_s": wall,
+        "load_strategy": s["load_strategy"],
+        "load_s": s["load_s"],
+        "load_split": split,
+        "prefill_s": s["prefill_s"],
+        "decode_s": s["decode_s"],
+        "tok_per_s": s["tok_per_s"],
+        "steady_prefill_s": steady.prefill_s,
+        "steady_decode_s": steady.decode_s,
+        "steady_tok_per_s": steady.tok_per_s,
+        "logits_err_kernel": err_k,
+        "logits_err_bf16_plain": err_p,
+        "profile": profile,
+        "n_params": models.n_params(cfg),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log("main path: " + json.dumps({k: result[k] for k in (
+        "load_s", "prefill_s", "decode_s", "tok_per_s", "steady_prefill_s",
+        "steady_decode_s", "steady_tok_per_s")}))
+    del run, engine
+    torch.cuda.empty_cache()
+    return result
 
 
 # --------------------------------------------------------------- phase 4
@@ -484,7 +650,139 @@ def small_input() -> dict:
     log(f"smoke config card vs CPU: logits err {err:.2e}, tokens equal {same}")
     if not (err <= 1e-4 and same):
         fail("card and CPU disagree on the smoke config")
-    return {"logits_err": err, "tokens_equal": same}
+
+    # the same serve_loop on both: mixed lengths around the window of 16
+    from repro_torch.serve import STOP, Request, ServeEngine
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+               for n in (12, 16, 21, 9, 30)]
+    loops = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        engine = ServeEngine(cfg, params, cache_len=48, device=dev)
+        for mode, kw in (("greedy", {}), ("sampled", {"temperature": 0.8, "top_k": 16,
+                                                      "sampling_seed": 3})):
+            feed = iter([Request(rid=i, prompt=p, max_new_tokens=8)
+                         for i, p in enumerate(prompts)] + [STOP])
+            done = {}
+            engine.serve_loop(lambda: next(feed, STOP),
+                              lambda c: done.setdefault(c.rid, c.tokens.tolist()),
+                              max_batch=2, **kw)
+            loops[(dev, mode)] = done
+    for mode in ("greedy", "sampled"):
+        if loops[("cpu", mode)] != loops[("cuda", mode)] or len(loops[("cpu", mode)]) != 5:
+            fail(f"{mode} serve_loop differs between card and CPU")
+    log("smoke serve_loop card vs CPU: identical completions, greedy and sampled")
+    return {"logits_err": err, "tokens_equal": same, "serve_loop_equal": True}
+
+
+# --------------------------------------------------------------- phase 5
+def commit_v2(cfg, ws) -> None:
+    """A management transaction publishing gemma3-1b's ``v2`` weights
+    (seed 1) under the same bundle name: the next generation."""
+    from repro_torch import models
+    from repro_torch.ckpt import bundle_from_params
+
+    params = models.init_params(cfg, 1, "cuda")
+    bundle, payload = bundle_from_params(
+        f"weights:{cfg.name}", "v2", params, specs=models.param_specs(cfg))
+    del params
+    with ws.management() as tx:
+        tx.publish(bundle, payload)
+
+
+def serve_epoch(cfg, ws, app) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import STOP, Request, ServeEngine
+
+    zero_counts()
+    t0 = time.perf_counter()
+    engine = ServeEngine.from_workspace(cfg, ws, app, strategy="stable",
+                                        cache_len=SERVE_CACHE, device="cuda")
+    start_s = time.perf_counter() - t0
+    start_split = load_split(engine.load_stats)
+    rng = np.random.default_rng(0)
+    lens = rng.choice(SERVE_LENS, SERVE_REQUESTS)
+    pending = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (int(n),),
+                                                   dtype=np.int32),
+                       max_new_tokens=NEW) for i, n in enumerate(lens)]
+    state = {"handed": 0, "commit_s": 0.0}
+
+    def source():
+        if state["handed"] == FLIP_AFTER and not state["commit_s"]:
+            t = time.perf_counter()
+            commit_v2(cfg, ws)
+            state["commit_s"] = time.perf_counter() - t
+        if state["handed"] == len(pending):
+            return STOP
+        state["handed"] += 1
+        return pending[state["handed"] - 1]
+
+    done = {}
+    t1 = time.perf_counter()
+    report = engine.serve_loop(
+        source, lambda c: done.setdefault(c.rid, c), max_batch=SERVE_SLOTS,
+        epoch_watch=ws.epoch_watch(),
+        on_epoch=lambda change: engine.adopt_epoch(ws, app, strategy="stable"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    got = counts()
+    want = {"flash_attention": FLASH_PER_PREFILL * report.admitted,
+            "rmsnorm": RMS_PER_STEP * (report.admitted + report.steps),
+            "paged_reloc_copy": 2}
+    s = report.summary()
+    log(f"serve across an epoch: {json.dumps(s)}; launches {got}, expected {want}")
+    if got != want:
+        fail(f"kernel launches {got} != {want}")
+    if report.completed != SERVE_REQUESTS or report.rollovers != 1 or report.rollover_aborts:
+        fail(f"completed {report.completed}, rollovers {report.rollovers}, "
+             f"aborts {report.rollover_aborts}")
+    for c in done.values():
+        if c.tokens.shape != (NEW,) or not (0 <= c.tokens.min() and
+                                            c.tokens.max() < cfg.vocab_size):
+            fail(f"bad completion {c.rid}: {c.tokens}")
+    slots_equal(engine.params, ws.load(app, strategy="stable"))
+    log("after the flip every param equals the v2 host image")
+
+    def steady_loop():          # one more wave on v2, all slots busy
+        wave = iter(pending[:SERVE_SLOTS] + [STOP])
+        rep = engine.serve_loop(lambda: next(wave), lambda c: None,
+                                max_batch=SERVE_SLOTS)
+        torch.cuda.synchronize()
+        return {"steps": rep.steps, "admitted": rep.admitted}
+
+    loop_profile = profiled(steady_loop, "serve_loop wave")
+    served_s = wall - state["commit_s"]
+    lat = np.array([c.latency_s for c in done.values()])
+    out = {
+        "report": s,
+        "launches": got,
+        "requests": SERVE_REQUESTS,
+        "prompt_lens": [int(n) for n in lens],
+        "replica_start_s": start_s,
+        "start_split": start_split,
+        "flip_split": load_split(engine.load_stats),
+        "commit_s": state["commit_s"],
+        "wall_s": wall,
+        "served_s": served_s,
+        "req_per_s": report.completed / served_s,
+        "tok_per_s": report.tokens_out / served_s,
+        "rollover_stall_s": report.rollover_stall_s,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_max_s": float(lat.max()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": loop_profile,
+    }
+    log("serving: " + json.dumps({k: out[k] for k in (
+        "replica_start_s", "commit_s", "served_s", "req_per_s", "tok_per_s",
+        "rollover_stall_s", "latency_p50_s")}))
+    log("replica start split: " + json.dumps(start_split))
+    log("flip load split: " + json.dumps(out["flip_split"]))
+    del engine
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -505,17 +803,29 @@ def main() -> None:
     t0 = time.perf_counter()
     cfg = get_config(ARCH)
     detail = {"card": card, "build": build_kernels()}
-    kernels = [check_flash(cfg), check_rmsnorm(cfg)]
-    detail["main_path"] = main_path(cfg)
+    root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
+    try:
+        ws, app, host, detail["setup"] = publish(cfg, root)
+        kernels = [check_flash(cfg), check_rmsnorm(cfg), check_paged(host.table)]
+        detail["main_path"] = main_path(cfg, ws, host)
+        del host
+        detail["small_input"] = small_input()
+        detail["serve_epoch"] = serve_epoch(cfg, ws, app)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    paths = {"main_path": detail["main_path"]["launches"],
+             "serve_epoch": detail["serve_epoch"]["launches"]}
     for k in kernels:
-        k["launches"] = detail["main_path"]["launches"][k["name"]]
-    detail["small_input"] = small_input()
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        if not k["launches"]:
+            fail(f"{k['name']} was not launched on the main path")
     detail["kernels"] = kernels
     detail["total_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"done in {detail['total_s']:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(card)

@@ -10,6 +10,10 @@
 Both COPY: to the device, or into fresh memory on the CPU. They never wrap
 an image's arrays (which may be the read-only ``stable-mmap-cached``
 mapping) as tensors, so the model can never write into a shared arena.
+
+* ``params_from_device_image`` takes an image whose arena was built on the
+  device (``core/device_arena.py``): its tensors already are torch views of
+  an arena that load owns alone, so it checks them and copies nothing.
 """
 
 from __future__ import annotations
@@ -58,3 +62,21 @@ def params_from_image(image, specs: Mapping[str, ParamSpec], device="cuda"):
         name: _tensor(np.asarray(image[name]), spec.dtype, spec.shape, dev)
         for name, spec in specs.items()
     }
+
+
+def params_from_device_image(image, specs: Mapping[str, ParamSpec], device):
+    """A device-built image -> its own tensors, checked against ``specs``
+    (every name present, shape, dtype and device equal); no copy."""
+    dev = torch.device(device)
+    out = {}
+    for name, spec in specs.items():
+        t = image.tensors.get(name)
+        if t is None:
+            raise KeyError(f"image has no tensor {name!r}")
+        if tuple(t.shape) != tuple(spec.shape) or t.dtype != torch_dtype(spec.dtype):
+            raise TypeError(f"{name}: image tensor {tuple(t.shape)} {t.dtype} != "
+                            f"spec {tuple(spec.shape)} {spec.dtype}")
+        if t.device.type != dev.type or (dev.index is not None and t.device != dev):
+            raise ValueError(f"{name}: image tensor on {t.device}, engine on {dev}")
+        out[name] = t
+    return out

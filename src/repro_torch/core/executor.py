@@ -50,8 +50,12 @@ Loading strategies exposed for the benchmarks:
   ``lazy``        — dynamic linking with per-symbol first-use faulting (the
                     lazy-binding/PLT analogue, §6.2).
 
-The loaded image is numpy-only; sharded ``device_put`` belongs to the train/
-serve layers (core stays substrate-independent).
+The table-driven strategies (``stable``, ``prefetch``, ``dynamic``,
+``indexed``) also build the arena on a torch device when ``load`` is given
+one (``core/device_arena.py``): the payload pages go up once and the
+``paged_reloc_copy`` kernel gathers them into the device arena, whose slot
+views are the image's tensors. Without a device the image is numpy, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -89,6 +93,16 @@ def _zeros_init(name: str, shape: tuple[int, ...], dtype: str) -> np.ndarray:
     return np.zeros(shape, dtype=np_dtype(dtype))
 
 
+def paged_payload_bytes(table: RelocationTable) -> int:
+    """Payload bytes a page-table load accounts for: the rows' sizes, not
+    the whole pages it copies (vectorized: this is the per-load path)."""
+    rows = table.rows
+    copied = ~np.isin(
+        rows["type"], (int(RelocType.KERNEL), int(RelocType.INIT))
+    )
+    return int(rows["st_size"][copied].sum())
+
+
 @dataclass
 class LoadStats:
     strategy: str = ""
@@ -104,6 +118,12 @@ class LoadStats:
     shm_segment: str = ""       # stable-shm: segment name (census/debug)
     store_source: str = ""      # stable-remote: tier that produced the
                                 # arena (tables/cache/remote/bake)
+    # device loads (inside io_s), each synchronised: payload read + upload;
+    # the page-copy step (zeroed arena, host index checks and upload, one
+    # kernel launch); the CAST/INIT/unaligned host rows + kernel binding
+    upload_s: float = 0.0
+    kernel_s: float = 0.0
+    host_rows_s: float = 0.0
 
     @property
     def startup_s(self) -> float:
@@ -148,7 +168,10 @@ class MaterializationResult:
 
 @dataclass
 class LoadedImage:
-    """Result of loading an application: symbol name -> tensor view."""
+    """Result of loading an application: symbol name -> tensor view.
+
+    A host load holds numpy arrays; a device load holds a torch ``uint8``
+    arena on the device and torch views of it (``core/device_arena.py``)."""
 
     app: StoreObject
     arena: np.ndarray
@@ -266,6 +289,8 @@ class Executor:
         #           applied as one vectorized gather per provider (host
         #           execution of the paged_reloc_copy kernel's plan);
         #           CAST/INIT/unaligned rows fall back to the row loader.
+        #           A device load always takes the page table (it compiles
+        #           one where the table has none), whatever this says.
         self.loader = loader
         # Pre-apply tables into .arena images at materialization so the
         # stable-mmap strategy can epoch-load with a single CoW mmap.
@@ -460,6 +485,7 @@ class Executor:
         *,
         strategy: str = "auto",
         world: Optional[World] = None,
+        device=None,
     ):
         """Load an application image via a registered strategy.
 
@@ -467,15 +493,26 @@ class Executor:
         (table-driven) during an epoch. Everything else dispatches through
         the ``repro_torch.link.strategies`` registry, so new loaders are drop-in
         (``@register_strategy("name")``) and benchmarks select them by name.
+
+        ``device`` (a torch device or its name) builds the arena there; only
+        strategies registered with ``takes_device=True`` accept one, the
+        rest raise ``ValueError``. ``None`` keeps the numpy host image.
         """
         # Imported lazily: core stays importable without the link facade,
         # and the registry module itself imports core.
-        from repro_torch.link.strategies import resolve_strategy
+        from repro_torch.link.strategies import DEVICE_TODO, resolve_strategy
 
         world = world or self.manager.world()
         app = world.resolve(app_name)
         fn = resolve_strategy(strategy, mode=self.manager.mode)
-        return fn(self, app, world)
+        if device is not None and not getattr(fn, "takes_device", False):
+            raise ValueError(
+                f"load strategy {strategy!r} builds no device arena "
+                f"({DEVICE_TODO}); load it with device=None"
+            )
+        if device is None:
+            return fn(self, app, world)
+        return fn(self, app, world, device=device)
 
     def load_all(
         self,
@@ -510,7 +547,9 @@ class Executor:
         return dict(zip(names, images))
 
     # ------------------------------------------------------------- internals
-    def _load_stable(self, app: StoreObject, world: World) -> LoadedImage:
+    def _load_stable(
+        self, app: StoreObject, world: World, device=None
+    ) -> LoadedImage:
         stats = LoadStats(strategy="stable")
         t0 = time.perf_counter()
         key = self.closure_key(app, world)
@@ -529,8 +568,7 @@ class Executor:
         table = RelocationTable.load(path)
         table.check_fresh(key, app.content_hash)
         stats.table_load_s = time.perf_counter() - t0
-        image = self._apply_table(app, table, stats)
-        return image
+        return self._apply_table(app, table, stats, device)
 
     def _build_arena_entry(self, app: StoreObject, key: str) -> ArenaEntry:
         """Fill path of the epoch-resident arena cache: parse the sidecar
@@ -768,7 +806,9 @@ class Executor:
         image.stats.store_source = source
         return image
 
-    def _load_dynamic(self, app: StoreObject, world: World) -> LoadedImage:
+    def _load_dynamic(
+        self, app: StoreObject, world: World, device=None
+    ) -> LoadedImage:
         stats = LoadStats(strategy="dynamic")
         t0 = time.perf_counter()
         resolver = DynamicResolver(world)
@@ -778,9 +818,11 @@ class Executor:
         )
         stats.resolve_s = time.perf_counter() - t0
         stats.probes = resolver.probe_count
-        return self._apply_table(app, table, stats)
+        return self._apply_table(app, table, stats, device)
 
-    def _load_indexed(self, app: StoreObject, world: World) -> LoadedImage:
+    def _load_indexed(
+        self, app: StoreObject, world: World, device=None
+    ) -> LoadedImage:
         """Dynamic-shaped load that resolves through the symbol index —
         the management-time fallback (``auto`` maps here while the world is
         in flux), sparing the O(refs x scope) ld.so probe.
@@ -818,7 +860,7 @@ class Executor:
                 nbytes=lambda t: int(getattr(t.rows, "nbytes", 0)),
             )
         stats.resolve_s = time.perf_counter() - t0
-        return self._apply_table(app, table, stats)
+        return self._apply_table(app, table, stats, device)
 
     def _bake_arena(self, app: StoreObject, table: RelocationTable, key: str) -> float:
         """Pre-apply ``table`` into a page-aligned arena image on disk.
@@ -905,8 +947,15 @@ class Executor:
         return LazyImage(self, app, world, bindings=bindings)
 
     def _apply_table(
-        self, app: StoreObject, table: RelocationTable, stats: LoadStats
+        self, app: StoreObject, table: RelocationTable, stats: LoadStats,
+        device=None,
     ) -> LoadedImage:
+        if device is not None:
+            # built on the device with the paged_reloc_copy kernel; never
+            # cached: each device load owns its arena
+            from .device_arena import apply_table_on_device
+
+            return apply_table_on_device(self, app, table, stats, device)
         t0 = time.perf_counter()
         arena = np.empty(table.arena_size, dtype=np.uint8)
         kernels: dict[str, str] = {}
@@ -942,13 +991,7 @@ class Executor:
             and "host_rows" in table.meta
         ):
             self._apply_paged(table, arena, kernels)
-            # page-table loads copy whole pages; report the payload bytes
-            # the rows account for (vectorized: this is the per-load path)
-            copied = ~np.isin(
-                rows["type"],
-                (int(RelocType.KERNEL), int(RelocType.INIT)),
-            )
-            return int(rows["st_size"][copied].sum())
+            return paged_payload_bytes(table)
 
         slots = table.slots()
 
@@ -1029,7 +1072,6 @@ class Executor:
     def _apply_paged(self, table: RelocationTable, arena: np.ndarray,
                      kernels: dict) -> None:
         """Vectorized page-table application (one gather per provider)."""
-        rows = table.rows
         src, dst = table._pt_src, table._pt_dst
         pad = align_up(arena.nbytes, PAGE_BYTES) - arena.nbytes
         if pad:
@@ -1074,16 +1116,28 @@ class Executor:
         # host-path rows: CAST / INIT / unaligned SLICE
         host_rows = table.meta.get("host_rows", [])
         if host_rows:
-            self._apply_row_subset(table, arena, kernels, host_rows)
-        # kernel symbols (not in the page table)
+            self._apply_row_subset(
+                table,
+                lambda s: arena[s.offset : s.offset + s.nbytes],
+                kernels,
+                host_rows,
+            )
+        self._bind_kernels(table, kernels)
+
+    @staticmethod
+    def _bind_kernels(table: RelocationTable, kernels: dict) -> None:
+        """Bind the table's KERNEL rows (never in the page table)."""
+        rows = table.rows
         kmask = rows["type"] == int(RelocType.KERNEL)
         for i in np.nonzero(kmask)[0]:
             name = table.name_at(rows["symbol_name"][i])
             prov = table.object_by_uuid(int(rows["provides_so_uuid"][i]))
             kernels[name] = f"{prov['name']}:{int(rows['st_value'][i])}"
 
-    def _apply_row_subset(self, table: RelocationTable, arena: np.ndarray,
+    def _apply_row_subset(self, table: RelocationTable, slot_bytes,
                           kernels: dict, idxs) -> None:
+        """Apply rows ``idxs`` of ``table`` one by one; ``slot_bytes(slot)``
+        returns the writable uint8 bytes of that arena slot."""
         rows = table.rows
         slots = table.slots()
         for i in idxs:
@@ -1101,12 +1155,12 @@ class Executor:
                     continue
                 if slot is None:
                     slot = slots[name]  # slotless tensor ref: loud
-                dstb = arena[slot.offset : slot.offset + slot.nbytes]
+                dstb = slot_bytes(slot)
                 init = self.initializer(name, slot.shape, slot.dtype)
                 dstb[:] = np.ascontiguousarray(init).view(np.uint8).ravel()
                 continue
             slot = slots[name]
-            dstb = arena[slot.offset : slot.offset + slot.nbytes]
+            dstb = slot_bytes(slot)
             prov = table.object_by_uuid(int(r["provides_so_uuid"]))
             mm = self._payload_mmap(prov["store_name"])
             src0 = int(r["st_value"]) + int(r["addend"])

@@ -30,9 +30,9 @@ from typing import Iterable, Mapping, Optional
 
 # Tensors inside bundle payloads are aligned to PAGE_BYTES so that every
 # relocation is a whole-page run in both source and destination. This is the
-# TPU-native re-think of the paper's "sequential, prefetch-friendly" loader:
-# page-granular relocations compile to a flat page table that a Pallas kernel
-# can walk with scalar prefetch (kernels/paged_reloc_copy).
+# device-native re-think of the paper's "sequential, prefetch-friendly"
+# loader: page-granular relocations compile to a flat page table that the
+# paged_reloc_copy kernel walks one page per block (kernels/paged_reloc_copy).
 PAGE_BYTES = 4096
 
 

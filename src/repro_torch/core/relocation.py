@@ -22,11 +22,12 @@ world hash the table was materialized under is kept in ``meta`` for
 observability; pre-closure-hash tables (no ``closure_hash`` in meta) fall
 back to world-hash freshness, preserving old stores.
 
-``PageTable`` is the TPU-native compilation of a relocation table: because
-bundle payloads and the destination arena are PAGE_BYTES-aligned, almost
-every relocation is a whole-page run; the page table is a flat (dst_page ->
-src_page) gather map executed by the ``paged_reloc_copy`` Pallas kernel
-(HBM->HBM table-driven DMA). Rows that are not page-clean (unaligned SLICEs,
+``PageTable`` is the device-native compilation of a relocation table:
+because bundle payloads and the destination arena are PAGE_BYTES-aligned,
+almost every relocation is a whole-page run; the page table is a flat
+(dst_page -> src_page) gather map, executed on the host by the executor's
+paged loader and on the card by the ``paged_reloc_copy`` CUDA kernel
+(``core/device_arena.py``). Rows that are not page-clean (unaligned SLICEs,
 CASTs, INITs) stay on the host path.
 """
 
@@ -135,7 +136,7 @@ class RelocationTable:
     meta: dict                            # app/world/epoch + arena layout
     _uuid_to_obj: dict = field(default_factory=dict, repr=False)
     # materialization-time page-table compilation (src/dst page indices):
-    # the epoch loader's vectorized fast path + the Pallas kernel's input
+    # the epoch loader's vectorized fast path + the CUDA kernel's input
     _pt_src: Optional[np.ndarray] = field(default=None, repr=False)
     _pt_dst: Optional[np.ndarray] = field(default=None, repr=False)
 
@@ -351,7 +352,7 @@ def build_table(
 
 
 # --------------------------------------------------------------------------
-# Page-table compilation (TPU-native path; consumed by kernels/paged_reloc_copy)
+# Page-table compilation (consumed by kernels/paged_reloc_copy)
 # --------------------------------------------------------------------------
 
 
@@ -372,13 +373,21 @@ class PageTable:
     host_rows: np.ndarray      # int64 indices into table.rows
 
 
-def compile_page_table(table: RelocationTable) -> PageTable:
-    P = PAGE_BYTES
-    blob_layout: dict[int, int] = {}
+def blob_layout(table: RelocationTable) -> tuple[dict[int, int], int]:
+    """(provider uuid -> first page in the source blob, blob pages): the
+    table's objects' payloads concatenated in sidecar order, each padded to
+    whole pages — the layout ``PageTable.src_page`` indexes."""
+    layout: dict[int, int] = {}
     cursor = 0
     for o in table.objects:
-        blob_layout[int(o["uuid"])] = cursor
-        cursor += align_up(int(o["payload_size"]), P) // P
+        layout[int(o["uuid"])] = cursor
+        cursor += align_up(int(o["payload_size"]), PAGE_BYTES) // PAGE_BYTES
+    return layout, cursor
+
+
+def compile_page_table(table: RelocationTable) -> PageTable:
+    P = PAGE_BYTES
+    layout, cursor = blob_layout(table)
 
     dst_pages: list[np.ndarray] = []
     src_pages: list[np.ndarray] = []
@@ -395,11 +404,11 @@ def compile_page_table(table: RelocationTable) -> PageTable:
             rt in (RelocType.DIRECT, RelocType.SLICE)
             and src_byte % P == 0
             and int(r["offset"]) % P == 0
-            and int(r["provides_so_uuid"]) in blob_layout
+            and int(r["provides_so_uuid"]) in layout
             and int(r["provides_so_uuid"]) != 0
         ):
             n = align_up(size, P) // P
-            base_src = blob_layout[int(r["provides_so_uuid"])] + src_byte // P
+            base_src = layout[int(r["provides_so_uuid"])] + src_byte // P
             base_dst = int(r["offset"]) // P
             dst_pages.append(np.arange(base_dst, base_dst + n, dtype=np.int32))
             src_pages.append(np.arange(base_src, base_src + n, dtype=np.int32))
@@ -411,7 +420,7 @@ def compile_page_table(table: RelocationTable) -> PageTable:
     return PageTable(
         dst_page=dst,
         src_page=src,
-        blob_layout=blob_layout,
+        blob_layout=layout,
         blob_pages=cursor,
         arena_pages=align_up(table.arena_size, P) // P,
         host_rows=np.asarray(host_rows, dtype=np.int64),

@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and dtype names.
 
 There is no fallback: ``device="cuda"`` (every entry point's default)
 raises when no card is present, and the CPU runs only when asked for
@@ -24,3 +24,12 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A dtype name of specs and arena slots ("bfloat16", "float32", ...)
+    -> the torch dtype."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"no torch dtype named {name!r}")
+    return dt

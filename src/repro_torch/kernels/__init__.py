@@ -1,5 +1,6 @@
 """Kernels written by hand for Hopper, each beside its plain PyTorch
-version: ``flash_attention`` (CUDA C++, built by ``build``) and ``rmsnorm``
-(Triton). Both have run on an H100 (``chip_smoke.py``). The reference's
-third Pallas kernel, ``paged_reloc_copy``, is not ported yet: the linker's
-page tables are applied by a numpy gather on the host."""
+version: ``flash_attention`` and ``paged_reloc_copy`` (CUDA C++, built by
+``build``) and ``rmsnorm`` (Triton). Together they replace every Pallas
+kernel of the reference; ``chip_smoke.py`` builds and runs all three on an
+H100. ``paged_reloc_copy`` builds the arena on the card at every
+table-driven epoch load (``core/device_arena.py``)."""

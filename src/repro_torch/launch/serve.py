@@ -12,7 +12,8 @@ The CLI serves the arch's smoke config (as the reference launcher does);
 3. publish the bundle and an app importing ``models.manifest_refs(cfg)`` in
    one management transaction of a ``Workspace``;
 4. spin up a ``ServeEngine`` through ``ws.load(app, strategy=...)`` (the
-   stable linker by default) and copy the weights to the device;
+   stable linker by default, which builds the arena on the device with the
+   ``paged_reloc_copy`` kernel; host-only strategies copy it there);
 5. prefill a batch of random prompts and decode greedily.
 
 Not ported yet (ROADMAP Queue A item 7): ``--fleet`` and ``--traffic``.

@@ -41,6 +41,7 @@ from .strategies import (
     register_strategy,
     resolve_strategy,
     strategy_overrides,
+    strategy_takes_device,
     unregister_strategy,
 )
 from .transaction import ManagementTransaction
@@ -63,6 +64,7 @@ __all__ = [
     "report_from_table",
     "resolve_strategy",
     "strategy_overrides",
+    "strategy_takes_device",
     "unregister_strategy",
     "world_diff",
 ]

@@ -46,6 +46,13 @@ Built-ins mirror the paper's Figure 5 (and push past it):
 time (correct while the world is in flux, without the ld.so probe cost),
 stable during an epoch.
 
+Device arenas: the table-driven strategies (``stable``, ``prefetch``,
+``dynamic``, ``indexed``, hence ``auto``) are registered with
+``takes_device=True`` and accept ``device=`` — the executor then builds the
+arena on that device with the ``paged_reloc_copy`` kernel
+(``core/device_arena.py``). The baked-arena strategies and ``lazy`` take no
+device (``DEVICE_TODO``); ``Executor.load`` raises ``ValueError`` for them.
+
 Blue/green rollover: the epoch-resident strategies (``stable-mmap-cached``,
 ``stable-shm``) are generation-addressed — their cache keys hash the app's
 dependency closure, so a commit anywhere lands generation N+1 under *new*
@@ -71,15 +78,26 @@ LoadStrategy = Callable[[object, object, object], object]
 
 _STRATEGIES: dict[str, LoadStrategy] = {}
 
+DEVICE_TODO = (
+    "device arenas for the baked-arena strategies and lazy are ROADMAP "
+    "Queue A item 13"
+)
 
-def register_strategy(name: str, fn: Optional[LoadStrategy] = None):
+
+def register_strategy(
+    name: str, fn: Optional[LoadStrategy] = None, *, takes_device: bool = False
+):
     """Register a load strategy; usable as decorator or plain call.
 
     Re-registering a name replaces it (latest wins), so tests and notebooks
-    can shadow built-ins locally.
+    can shadow built-ins locally. ``takes_device=True`` declares that the
+    strategy accepts ``device=`` (a fourth, keyword argument) and builds its
+    arena there.
     """
 
     def _register(f: LoadStrategy) -> LoadStrategy:
+        if takes_device:
+            f.takes_device = True
         _STRATEGIES[name] = f
         return f
 
@@ -146,10 +164,15 @@ def resolve_strategy(name: str, *, mode: Mode) -> LoadStrategy:
     return get_strategy(name)
 
 
+def strategy_takes_device(name: str, *, mode: Mode) -> bool:
+    """Whether ``name`` (``auto`` resolved by ``mode``) builds device arenas."""
+    return getattr(resolve_strategy(name, mode=mode), "takes_device", False)
+
+
 # ------------------------------------------------------------------ built-ins
-@register_strategy("stable")
-def _stable(executor, app, world):
-    return executor._load_stable(app, world)
+@register_strategy("stable", takes_device=True)
+def _stable(executor, app, world, device=None):
+    return executor._load_stable(app, world, device)
 
 
 @register_strategy("stable-mmap")
@@ -172,14 +195,14 @@ def _stable_remote(executor, app, world):
     return executor._load_stable_remote(app, world)
 
 
-@register_strategy("dynamic")
-def _dynamic(executor, app, world):
-    return executor._load_dynamic(app, world)
+@register_strategy("dynamic", takes_device=True)
+def _dynamic(executor, app, world, device=None):
+    return executor._load_dynamic(app, world, device)
 
 
-@register_strategy("indexed")
-def _indexed(executor, app, world):
-    return executor._load_indexed(app, world)
+@register_strategy("indexed", takes_device=True)
+def _indexed(executor, app, world, device=None):
+    return executor._load_indexed(app, world, device)
 
 
 @register_strategy("lazy")
@@ -189,8 +212,8 @@ def _lazy(executor, app, world):
     return executor.lazy_image(app, world)
 
 
-@register_strategy("prefetch")
-def _prefetch(executor, app, world):
+@register_strategy("prefetch", takes_device=True)
+def _prefetch(executor, app, world, device=None):
     """Stable load preceded by OS readahead hints on every payload in the
     app's dependency closure — useful when payloads are cold on networked
     or spinning storage. The closure walk reads only manifests (no table
@@ -209,4 +232,4 @@ def _prefetch(executor, app, world):
                 fadvise(fd, 0, 0, os.POSIX_FADV_WILLNEED)
             finally:
                 os.close(fd)
-    return executor._load_stable(app, world)
+    return executor._load_stable(app, world, device)

@@ -485,9 +485,15 @@ class Workspace:
         *,
         strategy: str = "auto",
         world: Optional[World] = None,
+        device=None,
     ):
-        """Load an application image; dispatches via the strategy registry."""
-        image = self.executor.load(name, strategy=strategy, world=world)
+        """Load an application image; dispatches via the strategy registry.
+
+        ``device`` builds the arena on that torch device (table-driven
+        strategies only; ``Executor.load``); ``None`` gives the host image."""
+        image = self.executor.load(
+            name, strategy=strategy, world=world, device=device
+        )
         stats = getattr(image, "stats", None)
         if stats is not None:
             self._last_stats[name] = stats

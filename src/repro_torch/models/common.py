@@ -144,18 +144,33 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0, impl="kernel",
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-def decode_attention(q, k_cache, v_cache, pos: int):
+def host_ints(values, device) -> torch.Tensor:
+    """A host sequence of ints as an int64 tensor on ``device``. On CUDA it
+    goes up from pinned memory without waiting for the stream, so a decode
+    loop that feeds per-row positions never stalls the host on the card."""
+    t = torch.tensor(values, dtype=torch.int64)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def decode_attention(q, k_cache, v_cache, pos):
     """Single-token attention against a cache; entries beyond ``pos`` masked.
 
-    q (B,1,H,hd), caches (B,S,KV,hd). GQA as a grouped einsum against the
-    UNEXPANDED cache, scores in f32 (the reference's
+    q (B,1,H,hd), caches (B,S,KV,hd). ``pos`` is an int shared by every row
+    or a (B,) integer tensor, one position per row. GQA as a grouped einsum
+    against the UNEXPANDED cache, scores in f32 (the reference's
     ``preferred_element_type=f32``)."""
     b, s, kvh, hd = k_cache.shape
     h = q.shape[2]
     g = h // kvh
     qg = q.reshape(b, 1, kvh, g, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * hd**-0.5
-    valid = torch.arange(s, device=q.device) <= pos
+    if isinstance(pos, torch.Tensor):
+        valid = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
+        valid = valid[:, None, None, None, :]           # (B,1,1,1,S)
+    else:
+        valid = torch.arange(s, device=q.device) <= pos
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v_cache.dtype), v_cache)

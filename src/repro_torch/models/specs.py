@@ -21,7 +21,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, torch_dtype
 
 
 @dataclass(frozen=True)
@@ -33,14 +33,6 @@ class ParamSpec:
 
     def __post_init__(self):
         assert len(self.axes) == len(self.shape), (self.axes, self.shape)
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    """Spec dtype name ("bfloat16", "float32", ...) -> torch dtype."""
-    dt = getattr(torch, name, None)
-    if not isinstance(dt, torch.dtype):
-        raise TypeError(f"no torch dtype named {name!r}")
-    return dt
 
 
 def _name_seed(seed: int, name: str) -> int:

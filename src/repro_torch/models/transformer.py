@@ -15,7 +15,9 @@ Departures from the reference that do not change results:
 * ``decode_step`` updates the KV cache IN PLACE (the reference returns a
   new cache); the returned dict holds the same, updated tensors;
 * the cache's ``pos`` is a Python int, so decode never waits on the device
-  to read it.
+  to read it — or a tuple of ints, one per batch row: the batched form of
+  the reference's slot scheduler, which vmaps a B=1 ``decode_step`` over
+  slots that each carry their own scalar ``pos``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .common import (
     apply_rope,
     attention,
     decode_attention,
+    host_ints,
     layer_norm,
     mlp,
     rms_norm,
@@ -309,21 +312,48 @@ def prefill(cfg, params, batch, *, impl: str = "kernel", cache_len=None):
     return logits_fn(cfg, params, x[:, -1:, :]), cache
 
 
+def _row_windows(cfg, pos, S, device):
+    """Per-row decode geometry for a tuple of positions being written:
+    {"pos": (B,), "slot": (B,) ring index, window: ((B, w) cache rows of the
+    window, (B,) position inside it)} — the reference's clipped window
+    ``start_b = clip(pos_b - w + 1, 0, S - w)`` per row."""
+    geo = {"pos": host_ints(pos, device),
+           "slot": host_ints([p % S for p in pos], device)}
+    for w in set(_layer_windows(cfg)):
+        if w and w < S:
+            start = [min(max(p - w + 1, 0), S - w) for p in pos]
+            rows = host_ints(start, device)[:, None] + torch.arange(w, device=device)
+            geo[w] = (rows, host_ints([p - s for p, s in zip(pos, start)], device))
+    return geo
+
+
 def decode_step(cfg, params, cache, tokens):
     """One decode step: tokens (B,1) + cache -> (logits (B,1,V), cache').
 
     Writes the new keys and values into ``cache`` in place, at
     ``pos % S`` (a ring once the cache is full); a windowed layer attends
-    to the ``window`` entries ending at ``pos`` when ``window < S``."""
+    to the ``window`` entries ending at ``pos`` when ``window < S``.
+    ``cache["pos"]`` is an int, or a tuple of B ints: then every row uses
+    its own position (RoPE phase, ring slot, window, mask), exactly as a
+    B=1 call on that row would."""
     _check_dense(cfg)
     B = tokens.shape[0]
     hd = cfg.resolved_head_dim
-    pos = cache["pos"] + 1  # position being written
     x = _embed(params, tokens)
-    sin, cos = rope_angles(torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
     stacked = _stacked_params(params, "blocks")
     S = cache["k"].shape[2]
-    slot = pos % S
+    per_row = isinstance(cache["pos"], (tuple, list))
+    if per_row:
+        if len(cache["pos"]) != B:
+            raise ValueError(f"{len(cache['pos'])} positions for {B} rows")
+        pos = tuple(int(p) + 1 for p in cache["pos"])  # positions being written
+        geo = _row_windows(cfg, pos, S, x.device)
+        sin, cos = rope_angles(geo["pos"][:, None], hd, cfg.rope_theta)
+        rows = torch.arange(B, device=x.device)
+    else:
+        pos = cache["pos"] + 1  # position being written
+        sin, cos = rope_angles(host_ints([pos], x.device), hd, cfg.rope_theta)
+        slot = pos % S
 
     for i, window in enumerate(_layer_windows(cfg)):
         p = {n: a[i] for n, a in stacked.items()}
@@ -332,14 +362,24 @@ def decode_step(cfg, params, cache, tokens):
         q, k_new, v_new = _project_qkv(cfg, p, h)
         q = apply_rope(q, sin, cos)
         k_new = apply_rope(k_new, sin, cos)
-        k_c[:, slot] = k_new[:, 0]
-        v_c[:, slot] = v_new[:, 0]
-        if window and window < S:
-            start = min(max(pos - window + 1, 0), S - window)
-            o = decode_attention(q, k_c[:, start:start + window],
-                                 v_c[:, start:start + window], pos - start)
+        if per_row:
+            k_c[rows, geo["slot"]] = k_new[:, 0]
+            v_c[rows, geo["slot"]] = v_new[:, 0]
+            if window and window < S:
+                win, at = geo[window]
+                o = decode_attention(q, k_c[rows[:, None], win],
+                                     v_c[rows[:, None], win], at)
+            else:
+                o = decode_attention(q, k_c, v_c, geo["pos"])
         else:
-            o = decode_attention(q, k_c, v_c, pos)
+            k_c[:, slot] = k_new[:, 0]
+            v_c[:, slot] = v_new[:, 0]
+            if window and window < S:
+                start = min(max(pos - window + 1, 0), S - window)
+                o = decode_attention(q, k_c[:, start:start + window],
+                                     v_c[:, start:start + window], pos - start)
+            else:
+                o = decode_attention(q, k_c, v_c, pos)
         o = o.reshape(B, 1, -1) @ p["attn/wo"]
         if cfg.use_bias:
             o = o + p["attn/bo"]

@@ -1,16 +1,21 @@
 """Batched serving engine: prefill + greedy decode over a KV cache.
 
 Startup follows the stable-linking epoch path: ``from_workspace`` loads
-the app through ``repro_torch.link`` (default strategy
-``stable-mmap-cached``: one shared read-only arena mapping per process),
-then copies the tensors to the device through ``repro_torch.convert``.
+the app through ``repro_torch.link``. A table-driven strategy (``stable``,
+``prefetch``, ``dynamic``, ``indexed``) builds the arena on the engine's
+device with the ``paged_reloc_copy`` kernel, and the params ARE views of
+that arena (no copy). The other strategies (default ``stable-mmap-cached``:
+one shared read-only arena mapping per process) load on the host, and
+``repro_torch.convert`` copies the tensors to the device. ``adopt_epoch``
+and ``abort_adopt`` reload the same way.
 
 ``generate`` keeps every token on the device and reads them once, after
 the last step. Timings synchronise the card (``torch.cuda.synchronize``)
-so they cover the device work, not only its enqueue.
+so they cover the device work, not only its enqueue. ``serve_loop`` is
+continuous batching (``serve/scheduler.py``).
 
-Not ported yet (ROADMAP Queue A items 6-7): ``serve_loop`` and the slot
-scheduler, the traffic plane, and ``spawn_fleet``.
+Not ported yet (ROADMAP Queue A items 5 and 7): ``spawn_fleet`` and the
+traffic plane.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from repro_torch import convert, models
 from repro_torch.core.errors import AdoptDeadlineError
 from repro_torch.device import resolve_device
+from repro_torch.link import strategy_takes_device
 
 from . import faults
 
@@ -66,19 +72,30 @@ class ServeEngine:
     ) -> "ServeEngine":
         """Spin up a replica through the stable-linking epoch path.
 
-        Loads ``app_name`` from the workspace with ``strategy``, copies the
-        tensors to ``device`` and returns the wired engine;
+        Loads ``app_name`` from the workspace with ``strategy`` — on
+        ``device`` when the strategy builds device arenas, else on the host
+        and then copied there — and returns the wired engine;
         ``engine.load_stats`` carries the load's ``LoadStats``."""
         dev = resolve_device(device)
-        image = ws.load(app_name, strategy=strategy)
+        image = cls._load(ws, app_name, strategy, dev)
         params = cls._lift_params(cfg, image, dev)
         engine = cls(cfg, params, impl=impl, cache_len=cache_len, device=dev)
         engine.load_stats = image.stats
         return engine
 
     @staticmethod
+    def _load(ws, app_name, strategy, device):
+        """``ws.load`` with ``device`` wherever ``strategy`` takes one."""
+        on_device = strategy_takes_device(strategy, mode=ws.mode)
+        return ws.load(app_name, strategy=strategy,
+                       device=device if on_device else None)
+
+    @staticmethod
     def _lift_params(cfg, image, device):
-        return convert.params_from_image(image, models.param_specs(cfg), device)
+        specs = models.param_specs(cfg)
+        if isinstance(image.arena, torch.Tensor):
+            return convert.params_from_device_image(image, specs, device)
+        return convert.params_from_image(image, specs, device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -89,8 +106,10 @@ class ServeEngine:
         (image, params) without touching ``self``, so a reload abandoned
         at its deadline can never clobber the engine after a rollback."""
         faults.on_adopt_reload()
-        image = ws.load(app_name, strategy=strategy)
-        return image, self._lift_params(self.cfg, image, self.device)
+        image = self._load(ws, app_name, strategy, self.device)
+        params = self._lift_params(self.cfg, image, self.device)
+        self._sync()    # the new params are complete before anyone sees them
+        return image, params
 
     def adopt_epoch(
         self,
@@ -157,7 +176,7 @@ class ServeEngine:
         must not wedge the rescue), and returns the new generation."""
         gen = ws.rollback_epoch()
         ws.refresh()
-        image = ws.load(app_name, strategy=strategy)
+        image = self._load(ws, app_name, strategy, self.device)
         self.params = self._lift_params(self.cfg, image, self.device)
         self.load_stats = image.stats
         return gen
@@ -189,3 +208,55 @@ class ServeEngine:
         stats.decode_s = time.perf_counter() - t1
         stats.tokens_out = tokens.shape[0] * max_new_tokens
         return torch.cat(out, dim=1).cpu().numpy(), stats
+
+    def serve_loop(
+        self,
+        source,
+        sink,
+        *,
+        max_batch: int = 4,
+        max_queue: int = 16,
+        max_new_cap: int = 0,
+        epoch_watch=None,
+        on_epoch=None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        sampling_seed: int = 0,
+        on_delta=None,
+        priority_aging_s: float = 0.05,
+    ):
+        """Continuous batching: admit requests into open decode slots.
+
+        Unlike ``generate`` (a static batch that starts and finishes
+        together), this runs a fixed pool of ``max_batch`` slots, each
+        holding one request's cache row, admitted and retired
+        independently at every decode step. ``source()`` yields
+        ``scheduler.Request | None | scheduler.STOP``; finished
+        ``scheduler.Completion``s go to ``sink``. Requires a positive
+        ``cache_len`` (slot K/V rows need decode headroom past the
+        prompt). Returns a ``scheduler.ServeLoopReport``; the arguments are
+        ``scheduler.run_serve_loop``'s.
+        """
+        from . import scheduler
+
+        if self.cache_len <= 0 and self.cfg.family not in ("ssm",):
+            raise ValueError(
+                "serve_loop needs an engine built with cache_len > "
+                "prompt_len + max_new_tokens (slot K/V rows need decode "
+                "headroom)"
+            )
+        return scheduler.run_serve_loop(
+            self,
+            source,
+            sink,
+            max_batch=max_batch,
+            max_queue=max_queue,
+            max_new_cap=max_new_cap,
+            epoch_watch=epoch_watch,
+            on_epoch=on_epoch,
+            temperature=temperature,
+            top_k=top_k,
+            sampling_seed=sampling_seed,
+            on_delta=on_delta,
+            priority_aging_s=priority_aging_s,
+        )

@@ -98,3 +98,84 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, dt):
     # relative; the two sum in other orders, so allow one ulp beside 3e-2
     atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (3e-2, 2.0**-7)
     assert ((got.float() - want).abs() - rtol * want.abs()).max().item() <= atol
+
+
+# ----------------------------------------------------- paged relocation copy
+# the reference's cases (tests/test_kernels.py): (pages, copies)
+PAGED_CASES = [(4, 2), (64, 64), (128, 37)]
+
+
+def _paged_case(n_pages, n_copies, seed=0):
+    rng = np.random.default_rng(seed)
+    blob = rng.integers(-(2**31), 2**31 - 1, (n_pages, 8, 128), dtype=np.int32)
+    arena = rng.integers(-(2**31), 2**31 - 1, (n_pages, 8, 128), dtype=np.int32)
+    src = rng.integers(0, n_pages, n_copies, dtype=np.int32)
+    dst = rng.permutation(n_pages)[:n_copies].astype(np.int32)
+    return blob, arena, src, dst
+
+
+def test_paged_wrapper_counts_no_launch_on_cpu():
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
+
+    blob, arena, src, dst = _paged_case(8, 5)
+    before = prc.launches
+    prc.paged_reloc_copy(torch.from_numpy(blob), torch.from_numpy(arena), src, dst)
+    assert prc.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pages,n_copies", PAGED_CASES + [(8, 0)])
+def test_paged_reloc_copy_kernel_matches_plain_on_card(cuda, n_pages, n_copies):
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
+
+    blob, arena, src, dst = (torch.from_numpy(a) for a in _paged_case(n_pages, n_copies))
+    blob, arena = blob.to(cuda), arena.to(cuda)
+    want = prc.paged_reloc_copy_plain(blob, arena.clone(), src, dst)
+    n = prc.launches
+    got = prc.paged_reloc_copy(blob, arena, src, dst)
+    torch.cuda.synchronize()
+    assert prc.launches == n + (1 if n_copies else 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_paged_reloc_copy_keeps_untouched_pages_on_card(cuda):
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
+
+    blob = torch.zeros((4, 8, 128), dtype=torch.int32, device=cuda)
+    arena = torch.full((8, 8, 128), 7, dtype=torch.int32, device=cuda)
+    prc.paged_reloc_copy(blob, arena, np.array([0]), np.array([3]))
+    torch.cuda.synchronize()
+    assert bool((arena[3] == 0).all())
+    assert bool((arena[[0, 1, 2, 4, 5, 6, 7]] == 7).all())
+
+
+@pytest.mark.cuda
+def test_device_load_on_card_equals_host_image(cuda, tmp_path):
+    from repro_torch.ckpt import bundle_from_params
+    from repro_torch.core import EpochCache, ObjectKind, SymbolRef, make_object
+    from repro_torch.kernels.paged_reloc_copy import ops as prc
+    from repro_torch.link import Workspace
+
+    g = torch.Generator().manual_seed(5)
+    params = {"x": torch.randn((600, 32), generator=g).to(torch.bfloat16),
+              "y": torch.randn((2, 4, 8), generator=g)}
+    ws = Workspace.open(tmp_path / "store", epoch_cache=EpochCache())
+    bundle, payload = bundle_from_params("lib", "1", params)
+    app, _ = make_object(
+        name="app", version="1", kind=ObjectKind.APPLICATION,
+        refs=[SymbolRef("x", (600, 32), "bfloat16"),
+              SymbolRef("y[1]", (4, 8), "float32"),
+              SymbolRef("y", (2, 4, 8), "bfloat16")],        # a CAST host row
+        needed=["lib"])
+    with ws.management() as tx:
+        tx.publish(bundle, payload)
+        tx.publish(app)
+    n = prc.launches
+    got = ws.load("app", strategy="stable", device=cuda)
+    assert prc.launches == n + 1
+    host = ws.load("app", strategy="stable")
+    for name, t in got.tensors.items():
+        assert t.device.type == "cuda"
+        want = np.ascontiguousarray(host.tensors[name]).reshape(-1).view(np.uint8)
+        assert np.array_equal(t.reshape(-1).view(torch.uint8).cpu().numpy(), want), name
