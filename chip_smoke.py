@@ -5,24 +5,33 @@
 
 Phases (any failure exits non-zero; no phase is skipped or caught):
 
-1. build: compile every CUDA C++ kernel of the port with nvcc (one process
-   per source, started together); the Triton kernel compiles at its first
-   launch in phase 2. Set-up then publishes gemma3-1b at its published size
-   (26 layers, bf16, random weights from seed 0) into a fresh Workspace and
-   loads it once on the host (``device=None``) as the byte reference;
+1. build: compile the port's three CUDA C++ sources with nvcc (one process
+   per source, started together), print ``-Xptxas -v``'s registers and
+   spills for the flash-attention and rmsnorm kernels, and check that the
+   flash library's SASS holds tensor-core ``HGMMA`` instructions (with the
+   toolkit's ``cuobjdump``; "not checked" where there is none). Set-up then
+   publishes gemma3-1b at its published size (26 layers, bf16, random
+   weights from seed 0) into a fresh Workspace and loads it once on the
+   host (``device=None``) as the byte reference;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    (flash attention: the reference's kernel sweep cases plus the serving
-   shapes, f32 within 1e-4 and bf16 within 2e-2; rmsnorm: the sweep cases
-   plus the serving shapes, f32 within 1e-5 and bf16 within 3e-2 + 2**-7
-   relative; paged_reloc_copy: the reference's cases and gemma3-1b's real
-   page table over a 2.0 GB arena, exactly equal), and time kernel, plain
-   version and one PyTorch library call;
+   shapes, f32 within 1e-4 on the CUDA-core route and bf16 within 2e-2, on
+   the wgmma route at hd >= 64; rmsnorm: the sweep cases plus the serving
+   shapes, f32 within 1e-5 and bf16 within 3e-2 + 2**-7 relative;
+   paged_reloc_copy: the reference's cases and gemma3-1b's real page table
+   over a 2.0 GB arena, exactly equal), and time kernel, plain version and
+   one PyTorch library call; flash attention's simt route is timed at its
+   own shapes (the smoke config's) and, as a yardstick, at the serving
+   shapes through its C entry; rmsnorm and ``F.rms_norm`` are timed in
+   turns (their calls' time is the host's), and their device times come
+   from the profiler;
 3. main path: ``repro_torch.launch.serve.serve`` with that app: load with
    ``strategy="stable"``, which builds the arena on the card with one
    paged_reloc_copy launch (the params are views of it), prefill 4 prompts
    of 1024 tokens and decode 32 new tokens. The launch counts of that run
    must be exactly 1 paged copy, 26 flash-attention launches per prefill
-   and 105 rmsnorm launches per prefill and per decode step; every slot of
+   (all on the wgmma route) and 105 rmsnorm launches per prefill and per
+   decode step; every slot of
    the device arena must equal the host image's bytes. Its prefill logits
    must be finite and, against a float32 plain-attention run on the card,
    no further off than 1.5x the bf16 plain-attention run;
@@ -38,7 +47,8 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    ``v2`` bundle (seed 1); ``epoch_watch``/``adopt_epoch`` flip the engine
    at a request boundary, rebuilding the arena on the card. It must
    complete 12, flip exactly once with no abort, launch the paged copy
-   twice, flash attention 26 times per admission and rmsnorm 105 times per
+   twice, flash attention 26 times per admission (all wgmma) and rmsnorm
+   105 times per
    admission and per step, and serve from params byte-equal to the v2 host
    image after the flip. Rates leave out the commit's own wall time.
 
@@ -140,20 +150,100 @@ def time_ms(fn, min_total_ms: float = 40.0) -> float:
         n *= 4
 
 
+def time_pair_ms(fn, other, rounds: int = 3) -> tuple[float, float]:
+    """Medians of ``time_ms`` of two calls timed in turns (fn, other, other,
+    fn, ...): for small calls whose time is the host's, which drifts."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(time_ms(fn))
+        b.append(time_ms(other))
+        b.append(time_ms(other))
+        a.append(time_ms(fn))
+    return sorted(a)[len(a) // 2], sorted(b)[len(b) // 2]
+
+
 # --------------------------------------------------------------- phase 1
+def ptxas_kernels(text: str) -> list[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: name, registers, spills."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"kernel": line.split("'")[1], "regs": None, "spill_bytes": 0}
+            rows.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            cur["spill_bytes"] = nums[1] + nums[2]    # stack, stores, loads
+        elif cur is not None and line.strip().startswith("ptxas info    : Used"):
+            cur["regs"] = int(line.split("Used")[1].split()[0])
+    names = [r["kernel"] for r in rows]
+    if names and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60)
+        for r, name in zip(rows, res.stdout.splitlines()):
+            name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            r["kernel"] = name.split("(")[0]
+    return rows
+
+
+def cuobjdump() -> str | None:
+    """The toolkit's cuobjdump, or the copy that Triton's package carries."""
+    import importlib.util
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cand.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    return next((str(c) for c in cand if c.exists()), None)
+
+
 def build_kernels() -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_reloc_copy import ops as prc
+    from repro_torch.kernels.rmsnorm import ops as rn
 
     t0 = time.perf_counter()
-    logs = build.build_all([fa.SOURCE, prc.SOURCE])
+    logs = build.build_all([fa.SOURCE, rn.SOURCE, prc.SOURCE])
     wall = time.perf_counter() - t0
+    out = {"nvcc_wall_s": wall, "per_source_s": dict(build.build_seconds), "ptxas": {}}
     for source, text in logs.items():
-        usage = [ln.strip() for ln in text.splitlines() if "Used" in ln]
-        log(f"built {source} in {build.build_seconds[source]:.1f} s; ptxas: "
-            + "; ".join(sorted(set(usage))))
-    return {"nvcc_wall_s": wall, "per_source_s": dict(build.build_seconds)}
+        log(f"built {source} in {build.build_seconds[source]:.1f} s")
+        for line in text.splitlines():
+            if "warning" in line.lower():
+                log(f"  nvcc: {line.strip()}")
+        rows = ptxas_kernels(text)
+        out["ptxas"][source] = rows
+        if source == prc.SOURCE:
+            continue
+        if source == rn.SOURCE:        # 48 instantiations: one summary line
+            log(f"  ptxas: {len(rows)} kernels, at most "
+                f"{max(r['regs'] for r in rows)} registers, "
+                f"{sum(r['spill_bytes'] for r in rows)} spill bytes in all")
+            for r in rows:
+                if r["spill_bytes"]:
+                    log(f"  ptxas: {r['kernel']} spills {r['spill_bytes']} bytes")
+            continue
+        for r in rows:
+            log(f"  ptxas: {r['kernel']}: {r['regs']} registers, "
+                f"{r['spill_bytes']} spill bytes")
+    tool = cuobjdump()
+    if tool is None:
+        out["hgmma"] = "not checked"
+        log("HGMMA in the flash library's SASS: not checked (no cuobjdump)")
+    else:
+        res = subprocess.run([tool, "-sass", str(build.library_path(fa.SOURCE))],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            fail(f"cuobjdump failed: {res.stderr.strip()[-2000:]}")
+        n = res.stdout.count("HGMMA")
+        out["hgmma"] = n
+        log(f"HGMMA in the flash library's SASS: {n} instructions ({tool})")
+        if not n:
+            fail("the flash library holds no HGMMA: the wgmma route is not real")
+    return out
 
 
 # --------------------------------------------------------------- phase 2
@@ -215,24 +305,30 @@ def check_flash(cfg) -> dict:
             q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
             k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dt)
             v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dt)
+            kind = fa.route(dt, hd)
+            before = fa.launches_by_route[kind]
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            if fa.launches_by_route[kind] != before + 1:
+                fail(f"flash_attention {case}: the {kind} route did not launch")
             want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
             err = (got.float() - want.float()).abs().max().item()
             name = str(dt).removeprefix("torch.")
-            errs.append({"case": case, "dtype": name, "max_abs_err": err})
+            errs.append({"case": case, "dtype": name, "route": kind, "max_abs_err": err})
             if not err <= FA_TOL[name]:
                 fail(f"flash_attention {case} {name}: max err {err} > {FA_TOL[name]}")
             if case in serving and dt == torch.bfloat16:
                 worst_serving = max(worst_serving, err)
-    log(f"flash_attention: {len(errs)} cases agree with the plain version")
+    log(f"flash_attention: {len(errs)} cases agree with the plain version "
+        f"({sum(e['route'] == 'wgmma' for e in errs)} on the wgmma route)")
 
     # times at the serving shapes, weighted as the main path launches them
     from repro_torch.models.transformer import _layer_windows
 
     mix = {w: _layer_windows(cfg).count(w) for w in windows}
-    per_shape, totals = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    work = []
+    per_shape, work = [], []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "simt_ms": 0.0,
+              "device_ms": 0.0, "library_device_ms": 0.0}
     for case in serving:
         B, Sq, Sk, H, KV, hd, causal, window = case
         q = torch.randn((B, Sq, H, hd), generator=g, device=dev, dtype=torch.bfloat16)
@@ -250,10 +346,15 @@ def check_flash(cfg) -> dict:
 
         row = {
             "case": case,
+            "route": fa.route(q.dtype, hd),
             "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=window)),
             "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
                                                                  window=window)),
             "library_ms": time_ms(library),
+            "simt_ms": time_ms(simt_launcher(q, k, v, window)),
+            "device_ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                              window=window)),
+            "library_device_ms": device_ms(library),
         }
         nbytes, flops = flash_work(case)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS)
@@ -262,9 +363,12 @@ def check_flash(cfg) -> dict:
         per_shape.append(row)
         for key in totals:
             totals[key] += row[key] * mix[window] / FLASH_PER_PREFILL
-        log(f"flash_attention window={window}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        log(f"flash_attention window={window}: {row['route']} kernel {row['ms']:.4f} ms "
+            f"(device {row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f} ms), simt "
+            f"kernel {row['simt_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    simt = simt_at_smoke_shapes()
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -275,7 +379,72 @@ def check_flash(cfg) -> dict:
         **mix_bound(work, BF16_FLOPS),
         "_cases": errs,
         "_per_shape": per_shape,
+        "_simt_route": simt,
     }
+
+
+def simt_launcher(q, k, v, window):
+    """A zero-argument call of the CUDA-core kernel's C entry on bf16 q/k/v
+    (outside the wrapper, which routes bf16 at hd 256 to wgmma): the simt
+    route's time at the serving shapes, as a yardstick. Not counted."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    lib = fa._library()
+    o = torch.empty_like(q)
+    b, sq, h, hd = q.shape
+    args = (1, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq,
+            k.shape[1], h, k.shape[2],
+            *[t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)],
+            1, window, 0, hd**-0.5, torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        err = lib.fa_forward_simt(*args)
+        if err:
+            fail(f"simt flash kernel: {lib.fa_error_string(err).decode()}")
+    return run
+
+
+def simt_at_smoke_shapes() -> dict:
+    """The simt route where the port sends it: gemma3-1b's smoke config
+    (float32, H 4, KV 1, hd 16) at the phase-4 prefill shape (2 x 40)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    cfg = get_config(ARCH, smoke=True)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    hd, H, KV = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = torch.randn((2, 40, H, hd), generator=g, device="cuda")
+    k = torch.randn((2, 40, KV, hd), generator=g, device="cuda")
+    v = torch.randn((2, 40, KV, hd), generator=g, device="cuda")
+    row = {"case": (2, 40, 40, H, KV, hd, True, cfg.sliding_window),
+           "route": fa.route(q.dtype, hd),
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v, window=cfg.sliding_window)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+               q, k, v, window=cfg.sliding_window))}
+    log(f"flash_attention smoke shape {row['case']} f32: {row['route']} kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+    return row
+
+
+def device_ms(fn, calls: int = 50) -> float:
+    """Mean device time of ``fn``'s kernels per call, from torch.profiler
+    (the CUDA-event times of small launches measure the host instead)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / calls
 
 
 def rms_mix(cfg) -> dict:
@@ -343,29 +512,37 @@ def check_rmsnorm(cfg) -> dict:
     for (rows, d), n in sorted(mix.items()):
         x = torch.randn((rows, d), generator=g, device=dev, dtype=torch.bfloat16)
         s = torch.randn((d,), generator=g, device=dev, dtype=torch.bfloat16)
+        ms, library_ms = time_pair_ms(lambda: rn.rmsnorm(x, s),
+                                      lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6))
         row = {
             "shape": (rows, d),
-            "ms": time_ms(lambda: rn.rmsnorm(x, s)),
+            "ms": ms,
             "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, s)),
-            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
+            "library_ms": library_ms,
+            "device_ms": device_ms(lambda: rn.rmsnorm(x, s)),
+            "library_device_ms": device_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
         }
         nbytes, flops = (2 * rows * d + d) * 2, 4.0 * rows * d
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
         work.append((n, nbytes, flops))
         row["weight"] = n
         per_shape.append(row)
         for key in totals:
             totals[key] += row[key] * n / total
-        log(f"rmsnorm {(rows, d)} x{n}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, F.rms_norm {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.5f} ms")
+        log(f"rmsnorm {(rows, d)} x{n}: kernel {row['ms']:.4f} ms a call (device "
+            f"{row['device_ms'] * 1e3:.3f} us, {row['bound_share']:.1%} of the bound), "
+            f"plain {row['plain_ms']:.4f} ms, F.rms_norm {row['library_ms']:.4f} ms "
+            f"(device {row['library_device_ms'] * 1e3:.3f} us), bound "
+            f"{row['bound_ms']:.5f} ms")
     return {
         "name": "rmsnorm",
-        "route": "triton",
-        "source": "src/repro_torch/kernels/rmsnorm/ops.py",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:31",
         "max_abs_err": worst_serving,
         **totals,
+        "device_ms": sum(r["device_ms"] * r["weight"] for r in per_shape) / total,
         **mix_bound(work, F32_FLOPS),
         "_cases": errs,
         "_per_shape": per_shape,
@@ -497,7 +674,8 @@ def counts() -> dict:
     from repro_torch.kernels.rmsnorm import ops as rn
 
     return {"flash_attention": fa.launches, "rmsnorm": rn.launches,
-            "paged_reloc_copy": prc.launches}
+            "paged_reloc_copy": prc.launches,
+            "flash_routes": dict(fa.launches_by_route)}
 
 
 def zero_counts() -> None:
@@ -506,6 +684,7 @@ def zero_counts() -> None:
     from repro_torch.kernels.rmsnorm import ops as rn
 
     fa.launches = rn.launches = prc.launches = 0
+    fa.launches_by_route.update(wgmma=0, simt=0)
 
 
 # --------------------------------------------------------------- phase 3
@@ -556,7 +735,8 @@ def main_path(cfg, ws, host) -> dict:
     wall = time.perf_counter() - t0
     got = counts()
     want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
-            "paged_reloc_copy": 1}
+            "paged_reloc_copy": 1,
+            "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
     log(f"main path ran in {wall:.1f} s; launches {got}, expected {want}")
     if got != want:
         fail(f"kernel launches {got} != {want}")
@@ -731,7 +911,8 @@ def serve_epoch(cfg, ws, app) -> dict:
     got = counts()
     want = {"flash_attention": FLASH_PER_PREFILL * report.admitted,
             "rmsnorm": RMS_PER_STEP * (report.admitted + report.steps),
-            "paged_reloc_copy": 2}
+            "paged_reloc_copy": 2,
+            "flash_routes": {"wgmma": FLASH_PER_PREFILL * report.admitted, "simt": 0}}
     s = report.summary()
     log(f"serve across an epoch: {json.dumps(s)}; launches {got}, expected {want}")
     if got != want:
@@ -789,7 +970,6 @@ def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no {SRC / 'repro_torch'}: run chip_smoke.py from a checkout")
     sys.path.insert(0, str(SRC))
-    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
 
     if not torch.cuda.is_available():
@@ -815,6 +995,7 @@ def main() -> None:
         shutil.rmtree(root, ignore_errors=True)
     paths = {"main_path": detail["main_path"]["launches"],
              "serve_epoch": detail["serve_epoch"]["launches"]}
+    kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -824,10 +1005,14 @@ def main() -> None:
     detail["total_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
+    # device_ms: the profiler's device time a launch, beside "ms" (CUDA
+    # events over back-to-back calls, the host's rate where it is slower);
+    # null for the page copy, whose event time is its device time
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     log(f"done in {detail['total_s']:.1f} s")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

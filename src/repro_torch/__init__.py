@@ -5,8 +5,8 @@ nothing of it, nor ``jax`` or ``ml_dtypes``: it carries its own copy of
 the host-side linker (``core``, ``link``), the configs, the dense
 transformer, the serving engine, its continuous-batching scheduler and
 launcher, and three kernels written by hand for Hopper
-(``kernels.flash_attention`` and ``kernels.paged_reloc_copy`` in CUDA C++,
-``kernels.rmsnorm`` in Triton). Entry points run on the card
+(``kernels.flash_attention``, ``kernels.rmsnorm`` and
+``kernels.paged_reloc_copy``, all CUDA C++). Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU; a missing card
 raises, it never falls back.
 

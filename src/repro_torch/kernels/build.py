@@ -83,6 +83,11 @@ def build_all(sources) -> dict[str, str]:
         return {s: _finish(s, *job) for s, job in started.items()}
 
 
+def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` is (or will be) built."""
+    return _target(source)
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed."""
     lib = _libs.get(source)

@@ -1,19 +1,27 @@
-"""Flash attention: the CUDA C++ kernel's wrapper and its plain version.
+"""Flash attention: the CUDA C++ kernels' wrapper and their plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/
 flash_attention.py`` (``flash_attention_bhsd``, body ``_flash_kernel``;
-wrapper ``ops.py::flash_attention``). The kernel itself is
-``repro_torch/csrc/flash_attention.cu``; its header says what bounds it on
-the H100 and what the design does about that.
+wrapper ``ops.py::flash_attention``). The kernels themselves are in
+``repro_torch/csrc/flash_attention.cu``; its header says what bounds them
+on the H100 and what each design does about that.
 
 ``flash_attention`` takes the model layout ``(B, S, H, hd)`` for q and
 ``(B, Sk, KV, hd)`` for k and v, as the reference wrapper does:
 
 * tensors on the CPU go to ``flash_attention_plain`` (the tests' path);
-* tensors on a CUDA device launch the kernel, or raise — there is no
-  fallback to the plain version.
+* tensors on a CUDA device launch a kernel, or raise — there is no
+  fallback to the plain version or from one kernel to the other.
 
-``launches`` counts kernel launches (plain-version calls do not count).
+The kernel is chosen by argument, never on failure: ``route(dtype, hd)``
+gives ``"wgmma"`` (the tensor-core kernel: bf16 at hd 64, 128 or 256) or
+``"simt"`` (the CUDA-core kernel: float32 at every supported hd, bf16 at hd
+16 or 32), and raises on anything else. The wgmma route reads its inputs
+with TMA, so ``tma_strides`` also checks that each base pointer is 16-byte
+aligned and each stride a multiple of 16 bytes, and raises otherwise.
+
+``launches`` counts kernel launches (plain-version calls do not count);
+``launches_by_route`` counts them per route.
 """
 
 from __future__ import annotations
@@ -24,11 +32,52 @@ import torch
 
 NEG_INF = -(2.0**30)       # finite on purpose: masked softmax stays NaN-free
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32) + WGMMA_HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+launches_by_route = {"wgmma": 0, "simt": 0}
 _lib = None          # the ctypes library, loaded at first launch
+
+
+def route(dtype, hd: int) -> str:
+    """Which kernel serves q/k/v of ``dtype`` at head_dim ``hd``:
+    ``"wgmma"`` for bf16 at hd 64/128/256, ``"simt"`` for float32 at any hd
+    of ``HEAD_DIMS`` and bf16 at hd 16/32. Raises on anything else."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention kernels take float32 or bfloat16, got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def tma_strides(t: torch.Tensor, name: str = "tensor") -> tuple[int, int, int]:
+    """The (batch, seq, head) strides, in elements, under which the wgmma
+    route's TMA maps read a bf16 ``(B, S, heads, hd)`` tensor. TMA needs a
+    16-byte aligned base, a contiguous head_dim and every other stride a
+    positive multiple of 16 bytes; a size-1 axis gets the stride it would
+    have if the tensor were contiguous (its coordinate is always 0). Raises
+    ValueError on anything TMA cannot take."""
+    if t.dim() != 4:
+        raise ValueError(f"{name}: expected (B, S, heads, hd), got {tuple(t.shape)}")
+    size = t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base pointer {t.data_ptr():#x} is not 16-byte "
+                         "aligned, which TMA needs")
+    if t.shape[3] > 1 and t.stride(3) != 1:
+        raise ValueError(f"{name}: head_dim axis must be contiguous")
+    out, inner = [], t.shape[3]
+    for axis in (2, 1, 0):
+        stride = t.stride(axis) if t.shape[axis] > 1 else inner
+        if stride <= 0 or (stride * size) % 16:
+            raise ValueError(f"{name}: stride {t.stride(axis)} of axis {axis} is not a "
+                             "positive multiple of 16 bytes, which TMA needs")
+        out.append(stride)
+        inner *= t.shape[axis]
+    return out[2], out[1], out[0]
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -60,12 +109,11 @@ def _library():
 
         lib = load_library(SOURCE)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.fa_forward.argtypes = (
-            [i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32]
-            + [i64] * 12
-            + [i32, i32, i32, ctypes.c_float, ptr]
-        )
-        lib.fa_forward.restype = i32
+        shape = [i32] * 5 + [i64] * 12 + [i32, i32, i32, ctypes.c_float, ptr]
+        lib.fa_forward_simt.argtypes = [i32, i32, ptr, ptr, ptr, ptr] + shape
+        lib.fa_forward_simt.restype = i32
+        lib.fa_forward_wgmma.argtypes = [i32, ptr, ptr, ptr, ptr] + shape
+        lib.fa_forward_wgmma.restype = i32
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -75,47 +123,49 @@ def _library():
 def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(
-            f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
-            f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
-        )
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     b, _, h, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
         raise ValueError(f"q{tuple(q.shape)} does not match k{tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    kind = route(q.dtype, hd)
+    if kind == "wgmma":
+        if k.shape[1] == 0:
+            raise ValueError("the wgmma route takes at least one key")
+        return kind, [s for name, t in (("q", q), ("k", k), ("v", v))
+                      for s in tma_strides(t, name)]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head_dim axis must be contiguous")
+    return kind, [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
 
 
 def _launch(q, k, v, causal, window, q_offset):
     global launches
-    _check(q, k, v)
+    kind, strides = _check(q, k, v)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if o.numel() == 0:
         return o
     lib = _library()
-    strides = [
-        t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)
-    ]
-    err = lib.fa_forward(
-        _DTYPE_CODES[q.dtype], hd,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, sq, sk, h, kvh, *strides,
-        int(causal), int(window), int(q_offset), float(hd**-0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    strides += [o.stride(i) for i in (0, 1, 2)]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, sq, sk, h, kvh, *strides,
+            int(causal), int(window), int(q_offset), float(hd**-0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if kind == "wgmma":
+        err = lib.fa_forward_wgmma(hd, *args)
+    else:
+        err = lib.fa_forward_simt(_DTYPE_CODES[q.dtype], hd, *args)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention launch failed: {lib.fa_error_string(err).decode()}"
+            f"flash_attention ({kind}) launch failed: {lib.fa_error_string(err).decode()}"
         )
     launches += 1
+    launches_by_route[kind] += 1
     return o
 
 

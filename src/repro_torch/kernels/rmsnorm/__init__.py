@@ -1,5 +1,5 @@
-"""RMSNorm for Hopper: a Triton kernel behind ``ops.rmsnorm``, with its
-plain PyTorch version beside it."""
+"""RMSNorm for Hopper: a CUDA C++ kernel (``csrc/rmsnorm.cu``) behind
+``ops.rmsnorm``, with its plain PyTorch version beside it."""
 
 from . import ops
 from .ops import rmsnorm, rmsnorm_plain

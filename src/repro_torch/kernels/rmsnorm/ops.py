@@ -1,37 +1,34 @@
-"""RMSNorm: the Triton kernel, its wrapper and its plain version.
+"""RMSNorm: the CUDA C++ kernel's wrapper and its plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm/rmsnorm.py``
 (``rmsnorm_2d``, body ``_rmsnorm_kernel``; wrapper ``ops.py::rmsnorm``):
 per row, ``x * rsqrt(sum(x**2) / d + eps) * scale`` in float32, cast back to
-x's dtype. Padded columns never count: the sum is divided by the true d.
+x's dtype. The kernel itself is ``repro_torch/csrc/rmsnorm.cu``; its header
+says what bounds it on the H100 and what the design does about that.
 
-What bounds it on the H100: memory. It reads each element once and writes
-it once (a few flops per element, far below the card's ~295 flop/byte
-ridge), so the bound is ``2 * N * d * itemsize`` bytes at 3.35 TB/s. The
-design keeps the row in registers between the reduction and the scale, so x
-crosses device memory once each way: a program takes ``BLOCK_R`` whole rows
-as one ``(BLOCK_R, BLOCK_D)`` tile, ``BLOCK_D = next_pow2(d)`` with masked
-loads, rows read through their stride (the last position of a sequence
-needs no copy), ``BLOCK_R`` sized so a tile holds about 4096 elements. At the
-serving shapes the calls are small (decode: 4 rows of 1152), so launch
-overhead, not bandwidth, decides their time.
+The host path is kept lean, because at the decode shapes the call, not the
+card, sets the time: the ctypes function's ``argtypes`` are set once, the
+rows are a view of ``x`` (read through their stride, no copy), and a call
+makes one ``torch.empty`` and one ctypes call, whose ``cudaError_t`` it
+checks.
 
 ``rmsnorm`` sends tensors on the CPU to ``rmsnorm_plain`` and launches the
 kernel for CUDA tensors, or raises; ``launches`` counts kernel launches.
-``triton`` is imported at the first launch, never at import.
-
-Status: this kernel has run on an H100, held against ``rmsnorm_plain`` by
-``chip_smoke.py`` at the reference's sweep shapes and the serving shapes;
-PERF.md has its times.
 """
+
+from __future__ import annotations
+
+import ctypes
 
 import torch
 
-_DTYPES = (torch.float32, torch.bfloat16)
-TILE_ELEMS = 4096
+SOURCE = "rmsnorm.cu"
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
-_kernel = None       # the @triton.jit function, defined at first launch
+_lib = None          # the ctypes library, bound at the first launch
+_fn = None           # its rms_forward, argtypes set once
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def rmsnorm_plain(x, scale, *, eps: float = 1e-6):
@@ -42,63 +39,56 @@ def rmsnorm_plain(x, scale, *, eps: float = 1e-6):
     return (y * scale.float()).to(dt)
 
 
-def _define_kernel():
-    # triton resolves the kernel's globals (``tl``) in this module's dict,
-    # so they are bound here, at the first launch, and never at import
-    import triton
-    import triton.language
+def _bind():
+    global _lib, _fn
+    from repro_torch.kernels.build import load_library
 
-    globals()["tl"] = triton.language
-
-    @triton.jit
-    def _rmsnorm_fwd(x_ptr, s_ptr, o_ptr, n_rows, d, x_row_stride, eps,
-                     BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = (tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)).to(tl.int64)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < d
-        mask = (rows < n_rows)[:, None] & cmask[None, :]
-        x = tl.load(x_ptr + rows[:, None] * x_row_stride + cols[None, :],
-                    mask=mask, other=0.0).to(tl.float32)
-        ms = tl.sum(x * x, axis=1) / d          # masked columns load as 0
-        y = x * tl.rsqrt(ms + eps)[:, None]
-        s = tl.load(s_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        y = y * s[None, :]
-        tl.store(o_ptr + rows[:, None] * d + cols[None, :],
-                 y.to(o_ptr.dtype.element_ty), mask=mask)
-
-    return _rmsnorm_fwd
+    lib = load_library(SOURCE)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.rms_forward.argtypes = [i32, i32, ptr, ptr, ptr, i64, i32, i64,
+                                ctypes.c_float, ptr]
+    lib.rms_forward.restype = i32
+    lib.rms_error_string.argtypes = [i32]
+    lib.rms_error_string.restype = ctypes.c_char_p
+    _lib, _fn = lib, lib.rms_forward
 
 
 def _launch(x, scale, eps):
-    global launches, _kernel
-    if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
+    global launches
+    xc, wc = _CODES.get(x.dtype), _CODES.get(scale.dtype)
+    if xc is None or wc is None:
         raise TypeError(f"rmsnorm kernel takes float32/bfloat16, got {x.dtype}/{scale.dtype}")
     d = x.shape[-1]
-    if scale.shape != (d,) or scale.device != x.device:
-        raise ValueError(f"scale {tuple(scale.shape)} on {scale.device} does not fit x {tuple(x.shape)} on {x.device}")
-    x2 = x.reshape(-1, d)            # a view wherever the rows allow one
-    if x2.stride(1) != 1:
-        raise ValueError("rmsnorm kernel takes rows whose elements are contiguous")
-    scale = scale.contiguous()
-    out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
-    n = x2.shape[0]
-    if n == 0:
-        return out.reshape(x.shape)
-    if _kernel is None:
-        _kernel = _define_kernel()
-    block_d = 1 << max(0, (d - 1).bit_length())
-    block_r = max(1, min(64, TILE_ELEMS // block_d))
-    grid = ((n + block_r - 1) // block_r,)
-    _kernel[grid](x2, scale, out, n, d, x2.stride(0), eps,
-                  BLOCK_R=block_r, BLOCK_D=block_d, num_warps=4)
+    dev = x.get_device()
+    if scale.shape != (d,) or scale.get_device() != dev or scale.stride(0) != 1:
+        raise ValueError(f"scale {tuple(scale.shape)} on {scale.device} does not fit "
+                         f"x {tuple(x.shape)} on {x.device}, or is not contiguous")
+    if x.is_contiguous():
+        rows, out = x, torch.empty_like(x)
+        n, stride = (x.numel() // d if d else 0), d
+    else:
+        rows = x.reshape(-1, d)      # a view wherever the rows allow one
+        if rows.stride(1) != 1:
+            raise ValueError("rmsnorm kernel takes rows whose elements are contiguous")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        n, stride = rows.shape[0], rows.stride(0)
+    if n == 0 or d == 0:
+        return out
+    if _fn is None:
+        _bind()
+    err = _fn(xc, wc, rows.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
+              stride, eps, _raw_stream(dev))
+    if err:
+        raise RuntimeError(f"rmsnorm launch failed for x {tuple(x.shape)} {x.dtype}: "
+                           f"{_lib.rms_error_string(err).decode()}")
     launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """RMSNorm over the last axis of ``x`` (any leading shape)."""
+    if x.is_cuda:
+        return _launch(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
-    return _launch(x, scale, eps)
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")

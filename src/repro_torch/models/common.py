@@ -10,8 +10,8 @@ Attention implementations (the ``impl`` switch):
   launches the CUDA C++ kernel for CUDA tensors and runs its plain version
   for CPU tensors.
 
-``rms_norm`` always goes through ``kernels.rmsnorm`` (the Triton kernel on
-CUDA, its plain version on the CPU).
+``rms_norm`` always goes through ``kernels.rmsnorm`` (the CUDA C++ kernel
+on CUDA, its plain version on the CPU).
 """
 
 from __future__ import annotations

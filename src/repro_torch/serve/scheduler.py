@@ -10,7 +10,7 @@ tensors on the engine's device: ``cache["k"]``/``["v"]`` are
 ``(L, slots, S, KV, hd)`` with one row per slot, and ``cache["pos"]`` is a
 tuple of per-slot positions kept on the host (the host issued every step,
 so it knows them). The reference vmaps a B=1 ``decode_step`` over slots;
-``torch.func.vmap`` cannot pass through the ctypes and Triton kernels, so
+``torch.func.vmap`` cannot pass through the ctypes-bound kernels, so
 one batched ``decode_step`` with per-row positions advances every slot
 instead (``models/transformer.py``). Each step decodes EVERY slot and masks
 the inactive ones, as the reference's ``jnp.where(active, nxt, 0)`` does,

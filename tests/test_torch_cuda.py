@@ -31,11 +31,25 @@ WINDOW_CASE = (1, 512, 512, 2, 2, 32, True, 100)
 SLICE_CASES = [(4, 1024, 1024, 4, 1, 256, True, 0),
                (4, 1024, 1024, 4, 1, 256, True, 512)]
 SLICE_RMS = [(4096, 1152), (4, 1024, 4, 256)]
+# the tensor-core route at each of its head dims (bf16; f32 takes the simt
+# route on the same cases): B, Sq, Sk, H, KV, hd, causal, window, q_offset
+WGMMA_CASES = [
+    case
+    for hd in (64, 128, 256)
+    for case in (
+        (2, 200, 200, 2, 1, hd, True, 0, 0),      # ragged: not tile multiples
+        (1, 100, 300, 2, 2, hd, True, 0, 200),    # q_offset > 0 (a later chunk)
+        (1, 150, 70, 4, 2, hd, False, 0, 0),      # cross attention, Sq != Sk
+        (1, 256, 256, 4, 2, hd, True, 0, 0),      # GQA, H/KV = 2
+        (2, 192, 192, 8, 2, hd, True, 0, 0),      # GQA, H/KV = 4
+        (1, 300, 300, 2, 1, hd, True, 40, 0),     # window smaller than a tile
+    )
+]
 
 
 def qkv(case, seed=0):
     """numpy f32 q, k, v for an FA case, from a seed."""
-    B, Sq, Sk, H, KV, hd, _, _ = case
+    B, Sq, Sk, H, KV, hd = case[:6]
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
             rng.standard_normal((B, Sk, KV, hd)).astype(np.float32),
@@ -62,24 +76,40 @@ def test_wrappers_raise_on_a_device_without_kernel():
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA C++ and Triton kernels "
+        pytest.skip("needs an NVIDIA GPU: the CUDA C++ kernels "
                     "run only on the card (python3 chip_smoke.py runs them)")
     return torch.device("cuda")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FA_CASES + [WINDOW_CASE] + SLICE_CASES)
+@pytest.mark.parametrize("case", FA_CASES + [WINDOW_CASE] + SLICE_CASES + WGMMA_CASES)
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain_on_card(cuda, case, dt):
     causal, window = case[6], case[7]
+    q_offset = case[8] if len(case) > 8 else 0
     q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in qkv(case))
-    n = fa.launches
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    kind = fa.route(dt, case[5])
+    n, n_route = fa.launches, fa.launches_by_route[kind]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
     assert fa.launches == n + 1
-    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert fa.launches_by_route[kind] == n_route + 1      # which kernel ran
+    assert kind == ("wgmma" if dt == torch.bfloat16 and case[5] >= 64 else "simt")
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
     tol = 1e-4 if dt == torch.float32 else 2e-2
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_raises_on_unaligned_input_on_card(cuda):
+    base = torch.zeros((1, 64, 2, 65), device=cuda, dtype=torch.bfloat16)
+    q = base[..., 1:]                 # base pointer 2 bytes off, stride 65
+    k = torch.zeros((1, 64, 1, 64), device=cuda, dtype=torch.bfloat16)
+    n = fa.launches
+    with pytest.raises(ValueError, match="16"):
+        fa.flash_attention(q, k, k)
+    assert fa.launches == n
 
 
 @pytest.mark.cuda
@@ -96,6 +126,23 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, dt):
     want = rn.rmsnorm_plain(x, s).float()
     # bf16: outputs reach ~10 on these inputs, where one bf16 ulp is 2**-7
     # relative; the two sum in other orders, so allow one ulp beside 3e-2
+    atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (3e-2, 2.0**-7)
+    assert ((got.float() - want).abs() - rtol * want.abs()).max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_reads_strided_rows_on_card(cuda, dt):
+    # the final norm's input at prefill: the last position of each sequence
+    g = torch.Generator(device=cuda).manual_seed(1)
+    full = torch.randn((4, 16, 1152), generator=g, device=cuda).to(dt)
+    x = full[:, -1:, :]
+    s = torch.randn(1152, generator=g, device=cuda).to(dt)
+    n = rn.launches
+    got = rn.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rn.launches == n + 1 and got.shape == x.shape
+    want = rn.rmsnorm_plain(x, s).float()
     atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (3e-2, 2.0**-7)
     assert ((got.float() - want).abs() - rtol * want.abs()).max().item() <= atol
 

@@ -70,7 +70,7 @@ def test_guard_scanner_catches_lazy_and_dynamic_imports():
 _IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "ml_dtypes", "repro")
+BLOCKED = ("jax", "ml_dtypes", "repro", "triton")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -87,6 +87,48 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print(len(names))
 """
+
+
+def test_port_sources_import_no_triton():
+    # every kernel of the port is CUDA C++ bound with ctypes
+    bad = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad += [f"{path.relative_to(SRC)}:{n} imports {m}"
+                for n, m in _imported_modules(tree) if m.split(".")[0] == "triton"]
+    assert not bad, "\n".join(bad)
+
+
+_RMSNORM_WITHOUT_TRITON = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("triton", "jax", "ml_dtypes", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+from repro_torch.kernels.rmsnorm import ops as rn
+x = torch.tensor([[1.0, 2.0, 3.0, 4.0], [0.5, -0.5, 0.5, -0.5]])
+s = torch.tensor([1.0, 1.0, 2.0, 0.5])
+got = rn.rmsnorm(x, s, eps=0.0)
+want = x / (x * x).mean(-1, keepdim=True).sqrt() * s
+assert torch.allclose(got, want, atol=1e-6), (got, want)
+assert rn.launches == 0 and "triton" not in sys.modules
+print("ok")
+"""
+
+
+def test_rmsnorm_runs_its_plain_path_with_triton_blocked():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run(
+        [sys.executable, "-c", _RMSNORM_WITHOUT_TRITON], env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.split()[-1] == "ok"
 
 
 def test_port_imports_with_jax_ml_dtypes_and_reference_blocked():

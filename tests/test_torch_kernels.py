@@ -2,7 +2,7 @@
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the reference oracle (``ref.py``) and the Pallas kernel in
-interpret mode, on the reference's own cases. The CUDA C++ and Triton
+interpret mode, on the reference's own cases. The CUDA C++
 kernels themselves are tested on the card by ``test_torch_cuda.py``."""
 
 from __future__ import annotations
