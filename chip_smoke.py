@@ -50,7 +50,33 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    twice, flash attention 26 times per admission (all wgmma) and rmsnorm
    105 times per
    admission and per step, and serve from params byte-equal to the v2 host
-   image after the flip. Rates leave out the commit's own wall time.
+   image after the flip. Rates leave out the commit's own wall time;
+6. the traffic plane (``repro_torch.serve.traffic``), each worker a
+   spawned process with its own CUDA context on the one card:
+   - fleet load: ``ServeEngine.spawn_fleet(processes=2, strategy=
+     "stable-shm")`` after checking that /dev/shm holds the 2.0 GB arena;
+     at most one fill, both workers' digests equal to the host image's;
+   - drive A: ``run_traffic`` with 2 workers (``strategy="stable"``: each
+     builds its arena on the card), 32 streamed greedy requests of 1024
+     tokens and 32 new tokens at a Poisson 1 req/s (below what two
+     workers serve), 4 slots a worker, and a v3 commit (prebuilt bundle,
+     seed 2) after the 16th request. It must complete 32 of 32, both
+     workers must adopt v3 with digests equal to the v3 host image, 32 x
+     32 partial frames with no gap, duplicate or mismatch, tokens in the
+     vocabulary, each worker's own launch counts (from its statistics
+     file) exactly 2 paged copies, 26 x admitted flash launches (all
+     wgmma) and 105 x (admitted + steps) rmsnorm launches, and every
+     served token within 3x the bf16 logit error of the argmax of an
+     independent float32 forward (plain attention, no cache, in this
+     process) of prompt + stream on the generation that served it; the
+     card's memory is sampled with nvidia-smi;
+   - drive B: 12 streamed requests of 256 tokens at 4 req/s into 2
+     ``stable-shm`` workers under supervision; worker 1 SIGKILLs itself at
+     its 40th decode step (its warmup takes 31), so it dies holding a
+     request. It must complete 12 of 12 with at least one restart and
+     one re-route and every stream whole.
+   The flip-window latencies include the commit's wall time: the
+   dispatcher runs ``rollover_fn`` synchronously, as the reference's does.
 
 Output: progress lines, then the kernel record as one JSON line, the
 card's name and power limit, and last the contract line
@@ -98,8 +124,17 @@ RMS_PER_STEP = 105            # 4 per layer (attn, q, k, mlp) + final norm
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_CACHE = 12, 4, 1056
 SERVE_LENS = (256, 512, 768, 1024)
 FLIP_AFTER = 6                # the source commits v2 after this many requests
+# the traffic plane (phase 6): two worker processes on the card
+# drive A's rate stays below what two workers served under overload
+# (1.25-1.6 req/s at 4 req/s offered), so its latencies describe a steady load
+TRAFFIC_REQUESTS, TRAFFIC_RATE_HZ, TRAFFIC_ROLL_AT = 32, 1.0, 16
+KILL_REQUESTS, KILL_PROMPT, KILL_RATE_HZ = 12, 256, 4.0
+KILL_STEP = 40                # worker 1's warmup takes 31 steps: mid-stream
 # the reference's paged-copy cases (tests/test_kernels.py): (pages, copies)
 PAGED_CASES = [(4, 2), (64, 64), (128, 37)]
+
+# device_ms profiles that recorded no device time (each is taken again)
+EMPTY_PROFILES: list[dict] = []
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 tensor flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -353,8 +388,9 @@ def check_flash(cfg) -> dict:
             "library_ms": time_ms(library),
             "simt_ms": time_ms(simt_launcher(q, k, v, window)),
             "device_ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                              window=window)),
-            "library_device_ms": device_ms(library),
+                                                              window=window),
+                                   f"flash {case}"),
+            "library_device_ms": device_ms(library, f"sdpa {case}"),
         }
         nbytes, flops = flash_work(case)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS)
@@ -430,21 +466,35 @@ def simt_at_smoke_shapes() -> dict:
     return row
 
 
-def device_ms(fn, calls: int = 50) -> float:
+def device_ms(fn, what: str, calls: int = 50, attempts: int = 3) -> float:
     """Mean device time of ``fn``'s kernels per call, from torch.profiler
-    (the CUDA-event times of small launches measure the host instead)."""
+    (the CUDA-event times of small launches measure the host instead). A
+    profile that recorded no device time at all is logged, kept in
+    ``EMPTY_PROFILES`` (written to ``build/chip_smoke.json``) and taken
+    again, up to ``attempts`` times; if none records any, the run fails.
+    Why a profile comes back empty is not known yet."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / calls
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        total = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / calls
+        EMPTY_PROFILES.append({
+            "what": what, "attempt": attempt, "events": len(events),
+            "cuda_events": sum(e.device_type == torch.autograd.DeviceType.CUDA
+                               for e in events)})
+        log(f"device_ms({what}): profile {attempt} of {attempts} recorded no "
+            f"device time ({EMPTY_PROFILES[-1]})")
+    fail(f"torch.profiler recorded no device time for {what} in {attempts} profiles")
 
 
 def rms_mix(cfg) -> dict:
@@ -519,8 +569,9 @@ def check_rmsnorm(cfg) -> dict:
             "ms": ms,
             "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, s)),
             "library_ms": library_ms,
-            "device_ms": device_ms(lambda: rn.rmsnorm(x, s)),
-            "library_device_ms": device_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
+            "device_ms": device_ms(lambda: rn.rmsnorm(x, s), f"rmsnorm {rows}x{d}"),
+            "library_device_ms": device_ms(
+                lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6), f"F.rms_norm {rows}x{d}"),
         }
         nbytes, flops = (2 * rows * d + d) * 2, 4.0 * rows * d
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS)
@@ -668,25 +719,6 @@ def slots_equal(params, host) -> None:
             fail(f"device arena slot {name!r} differs from the host image")
 
 
-def counts() -> dict:
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.paged_reloc_copy import ops as prc
-    from repro_torch.kernels.rmsnorm import ops as rn
-
-    return {"flash_attention": fa.launches, "rmsnorm": rn.launches,
-            "paged_reloc_copy": prc.launches,
-            "flash_routes": dict(fa.launches_by_route)}
-
-
-def zero_counts() -> None:
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.paged_reloc_copy import ops as prc
-    from repro_torch.kernels.rmsnorm import ops as rn
-
-    fa.launches = rn.launches = prc.launches = 0
-    fa.launches_by_route.update(wgmma=0, simt=0)
-
-
 # --------------------------------------------------------------- phase 3
 def profiled(run, what: str) -> dict:
     """``run()`` under torch.profiler: device time by kernel and the card's
@@ -726,14 +758,15 @@ def main_path(cfg, ws, host) -> dict:
     import torch
 
     from repro_torch import models
+    from repro_torch.kernels import launch_counts, zero_launch_counts
     from repro_torch.launch.serve import serve
 
-    zero_counts()
+    zero_launch_counts()
     t0 = time.perf_counter()
     run = serve(cfg, ws, batch=BATCH, prompt_len=PROMPT, max_new=NEW,
                 strategy="stable", device="cuda")
     wall = time.perf_counter() - t0
-    got = counts()
+    got = launch_counts()
     want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
             "paged_reloc_copy": 1,
             "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
@@ -875,9 +908,10 @@ def serve_epoch(cfg, ws, app) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import launch_counts, zero_launch_counts
     from repro_torch.serve import STOP, Request, ServeEngine
 
-    zero_counts()
+    zero_launch_counts()
     t0 = time.perf_counter()
     engine = ServeEngine.from_workspace(cfg, ws, app, strategy="stable",
                                         cache_len=SERVE_CACHE, device="cuda")
@@ -908,7 +942,7 @@ def serve_epoch(cfg, ws, app) -> dict:
         on_epoch=lambda change: engine.adopt_epoch(ws, app, strategy="stable"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    got = counts()
+    got = launch_counts()
     want = {"flash_attention": FLASH_PER_PREFILL * report.admitted,
             "rmsnorm": RMS_PER_STEP * (report.admitted + report.steps),
             "paged_reloc_copy": 2,
@@ -966,6 +1000,323 @@ def serve_epoch(cfg, ws, app) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 6
+def shm_free_check(need: int, what: str) -> float:
+    """Free bytes of /dev/shm, printed; fails if ``need`` does not fit."""
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    log(f"/dev/shm: {free / 1e9:.1f} GB free; {what} needs {need / 1e9:.3f} GB")
+    if free < need:
+        fail(f"/dev/shm holds {free} bytes, too few for {what} ({need} bytes): "
+             "the stable-shm arena is one POSIX segment of the whole arena")
+    return free
+
+
+def host_digest(ws, app) -> tuple[str, int]:
+    """Digest of the current generation loaded on the host (the reference
+    for every worker's digest), and its arena's size in bytes."""
+    from repro_torch.core.shm_arena import tensors_digest
+
+    img = ws.load(app, strategy="stable")
+    return tensors_digest(img.tensors), int(img.arena.nbytes)
+
+
+class MemorySampler:
+    """The card's ``memory.used`` from nvidia-smi, once a second, on a
+    thread, between ``start`` and ``stop``; ``peak_mib`` is the largest."""
+
+    def __init__(self):
+        import threading
+
+        self.samples: list[int] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            res = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=60)
+            if res.returncode == 0 and res.stdout.strip():
+                self.samples.append(int(res.stdout.split()[0]))
+            self._stop.wait(1.0)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self) -> int | None:
+        self._stop.set()
+        self._thread.join(timeout=90)
+        return max(self.samples) if self.samples else None
+
+
+def worker_launches(stats: dict, flips: int) -> tuple[dict, dict]:
+    """(counted, expected) launches of one traffic worker: the paged copy
+    once at start and once per flip (``stable`` builds its arena on the
+    card), 26 flash launches per admission (all wgmma) and 105 rmsnorm
+    launches per admission and per step."""
+    loop = stats["serve_loop"]
+    adm, steps = loop["admitted"], loop["steps"]
+    want = {"flash_attention": FLASH_PER_PREFILL * adm,
+            "rmsnorm": RMS_PER_STEP * (adm + steps),
+            "paged_reloc_copy": 1 + flips,
+            "flash_routes": {"wgmma": FLASH_PER_PREFILL * adm, "simt": 0}}
+    return stats["launches"], want
+
+
+def check_streams(rep, n: int, vocab: int, what: str, *, dups_allowed: bool) -> None:
+    """Every stream reassembled whole, equal to its completion row, with
+    tokens inside the vocabulary. A re-routed request's replay may deliver
+    spans twice (absorbed by seq), so only a drive without a kill must
+    have no duplicates."""
+    if (rep.stream_gaps or rep.stream_mismatches
+            or (rep.stream_dup_frames and not dups_allowed)):
+        fail(f"drive {what}: stream gaps {rep.stream_gaps}, mismatches "
+             f"{rep.stream_mismatches}, duplicates {rep.stream_dup_frames}")
+    if set(rep.stream_tokens) != set(range(n)):
+        fail(f"drive {what}: streams of {sorted(rep.stream_tokens)} reassembled")
+    for rid, toks in rep.stream_tokens.items():
+        if len(toks) != NEW or not (0 <= toks.min() and toks.max() < vocab):
+            fail(f"drive {what}: bad stream {rid}: {toks}")
+
+
+def drive_summary(rep) -> dict:
+    s = rep.summary()
+    s.pop("worker_stats")
+    s.update(steady_p99_latency_s=rep.steady_p99_s,
+             rollover_p99_latency_s=rep.rollover_p99_s,
+             kill_p99_latency_s=rep.kill_p99_s, ttft_p50_s=rep.ttft_p50_s,
+             ttft_p99_s=rep.ttft_p99_s, p50_latency_s=rep.p50_s,
+             p99_latency_s=rep.p99_s, req_per_s=rep.req_per_s,
+             tok_per_s=rep.tok_per_s, wall_s=rep.wall_s)
+    return s
+
+
+def served_tokens_check(cfg, rep, prompts, gens: dict) -> dict:
+    """Every served stream of a drive against an independent computation.
+    ``gens`` maps each generation to (seed, digest of its host image). Each
+    worker names the generation that served each rid (``served_gen`` in its
+    statistics file); that generation's weights are made again here from
+    its seed (their digest must equal the host image's), and one
+    full-sequence forward of prompt + stream with plain attention, no cache
+    and no slots, in this process, gives the logits at every served
+    position, in float32 and in bf16. A served token must be the float32
+    forward's argmax or fall below its max by at most 3x the bf16
+    forward's logit error: a greedy token of the kernel path, whose logits
+    lie within 1.5x that error (phase 3), can fall no further than twice
+    its own error."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.core.shm_arena import tensors_digest
+
+    served = {}
+    for st in rep.worker_stats:
+        served.update({int(r): g for r, g in st["served_gen"].items()
+                       if int(r) in rep.stream_tokens})
+    if set(served) != set(rep.stream_tokens) or not set(served.values()) <= set(gens):
+        fail(f"served generations {served} do not cover the streams "
+             f"{sorted(rep.stream_tokens)} on generations {sorted(gens)}")
+    plen = prompts.shape[1]
+    cfg32 = cfg.replace(dtype="float32")
+    out = {"rids_by_gen": {}, "positions": 0, "argmax_equal": 0,
+           "max_margin": 0.0, "max_margin_over_tol": 0.0, "tol": []}
+    for gen, (seed, digest) in sorted(gens.items()):
+        rids = sorted(r for r, g in served.items() if g == gen)
+        out["rids_by_gen"][gen] = rids
+        if not rids:
+            continue
+        params = models.init_params(cfg, seed, "cuda")
+        if tensors_digest(params) != digest:
+            fail(f"weights made again from seed {seed} differ from generation {gen}")
+        p32 = {n: t.float() for n, t in params.items()}
+        for i in range(0, len(rids), 4):
+            chunk = rids[i:i + 4]
+            streams = np.stack([rep.stream_tokens[r] for r in chunk])
+            seqs = np.concatenate([prompts[chunk], streams[:, :-1]], axis=1)
+            tokens = torch.as_tensor(seqs, device="cuda")
+            with torch.inference_mode():
+                l32 = models.forward(cfg32, p32, {"tokens": tokens},
+                                     impl="naive")[0][:, plen - 1:]
+                lbf = models.forward(cfg, params, {"tokens": tokens},
+                                     impl="naive")[0][:, plen - 1:].float()
+            err = (lbf - l32).abs().amax(dim=(1, 2))
+            want = torch.as_tensor(streams, device="cuda").long()
+            margin = l32.amax(-1) - l32.gather(-1, want[..., None])[..., 0]
+            tol = 3 * err[:, None]
+            out["positions"] += margin.numel()
+            out["argmax_equal"] += int((l32.argmax(-1) == want).sum())
+            out["max_margin"] = max(out["max_margin"], float(margin.max()))
+            out["max_margin_over_tol"] = max(out["max_margin_over_tol"],
+                                             float((margin / tol).max()))
+            out["tol"] += tol[:, 0].tolist()
+            bad = (margin > tol).nonzero().tolist()
+            if bad:
+                fail(f"generation {gen}: served tokens (rid, seq) "
+                     f"{[(chunk[b], q) for b, q in bad]} fall below the "
+                     f"float32 forward's max by more than {tol[:, 0].tolist()}")
+            del l32, lbf
+        del params, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def traffic_plane(cfg, ws, app) -> dict:
+    """Phase 6: a load-only stable-shm fleet, then Drive A (steady Poisson
+    load into two workers across a v3 flip) and Drive B (a worker SIGKILLed
+    mid-stream under supervision)."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.ckpt import bundle_from_params
+    from repro_torch.serve import ServeEngine, run_traffic
+    from repro_torch.serve.traffic import draw_prompts
+
+    torch.cuda.empty_cache()
+    cores = len(os.sched_getaffinity(0))
+    log(f"traffic plane: {cores} usable host cores")
+    out = {"cores": cores}
+
+    # ---- fleet load: one shm segment, filled at most once, same bytes
+    want_v2, arena_bytes = host_digest(ws, app)
+    out["shm_free_fleet"] = shm_free_check(arena_bytes, "the fleet's arena")
+    fleet = ServeEngine.spawn_fleet(ws, app, processes=2, strategy="stable-shm",
+                                    timeout=300)
+    fs = fleet.summary()
+    digests = {w.get("tensors_digest") for w in fleet.workers}
+    log(f"fleet load: {json.dumps(fs)}; load_s "
+        f"{[w.get('load_s') for w in fleet.workers]}")
+    if fleet.failed or len(fleet.workers) != 2 or fleet.fills > 1:
+        fail(f"fleet load: {fs}")
+    if digests != {want_v2}:
+        fail(f"fleet digests {digests} != host image's {want_v2}")
+    out["fleet"] = {**fs, "load_s": [w.get("load_s") for w in fleet.workers],
+                    "digest": want_v2}
+
+    # ---- Drive A: steady load across a flip to v3 (prebuilt: the
+    # rollover_fn runs only the management transaction)
+    gen_v2 = ws.epoch_gen
+    params = models.init_params(cfg, 2, "cuda")
+    v3 = bundle_from_params(f"weights:{cfg.name}", "v3", params,
+                            specs=models.param_specs(cfg))
+    del params
+    torch.cuda.empty_cache()
+    commit = {}
+
+    def rollover_fn():
+        t = time.perf_counter()
+        with ws.management() as tx:
+            tx.publish(*v3)
+        commit["s"] = time.perf_counter() - t
+        log(f"drive A: v3 committed in {commit['s']:.3f} s")
+
+    sampler = MemorySampler().start()
+    rep = run_traffic(
+        ws, app, arch=ARCH, workers=2, n_requests=TRAFFIC_REQUESTS,
+        rate_hz=TRAFFIC_RATE_HZ, seed=0, prompt_len=PROMPT, max_new_tokens=NEW,
+        max_batch=SERVE_SLOTS, strategy="stable", stream=True,
+        warmup_per_worker=1, timeout=300, rollover_at=TRAFFIC_ROLL_AT,
+        rollover_fn=rollover_fn, device="cuda", smoke=False)
+    peak_mib = sampler.stop()
+    a = drive_summary(rep)
+    log(f"drive A: {json.dumps(a)}")
+    if rep.sent != TRAFFIC_REQUESTS or rep.completed != TRAFFIC_REQUESTS or rep.failed:
+        fail(f"drive A: sent {rep.sent}, completed {rep.completed}, "
+             f"errors {rep.worker_errors}")
+    want_v3, _ = host_digest(ws, app)
+    adopted = {(x["epoch_gen"], x["digest"]) for x in rep.adoptions}
+    if len(rep.adoptions) != 2 or adopted != {(ws.epoch_gen, want_v3)}:
+        fail(f"drive A: adoptions {rep.adoptions}, want gen {ws.epoch_gen} "
+             f"digest {want_v3}")
+    if rep.partial_frames != TRAFFIC_REQUESTS * NEW:
+        fail(f"drive A: {rep.partial_frames} partial frames")
+    check_streams(rep, TRAFFIC_REQUESTS, cfg.vocab_size, "A", dups_allowed=False)
+    if len(rep.worker_stats) != 2:
+        fail(f"drive A: {len(rep.worker_stats)} worker statistics files")
+    prompts, _ = draw_prompts(cfg.vocab_size, TRAFFIC_REQUESTS, PROMPT,
+                              TRAFFIC_RATE_HZ, 0)
+    t = time.perf_counter()
+    tokens_check = served_tokens_check(
+        cfg, rep, prompts, {gen_v2: (1, want_v2), ws.epoch_gen: (2, want_v3)})
+    log(f"drive A: all {tokens_check['positions']} served tokens within tolerance "
+        f"of an independent float32 forward on the generation that served them "
+        f"({tokens_check['argmax_equal']} its argmax; rids by generation "
+        f"{ {g: len(r) for g, r in tokens_check['rids_by_gen'].items()} }; largest "
+        f"margin {tokens_check['max_margin']:.5f}, "
+        f"{tokens_check['max_margin_over_tol']:.3f} of its tolerance; "
+        f"{time.perf_counter() - t:.1f} s)")
+    total = {"flash_attention": 0, "rmsnorm": 0, "paged_reloc_copy": 0,
+             "flash_routes": {"wgmma": 0, "simt": 0}}
+    per_worker = []
+    for st in rep.worker_stats:
+        got, want = worker_launches(st, flips=1)
+        loop = st["serve_loop"]
+        row = {"worker": st["worker"], "launches": got, "expected": want,
+               "admitted": loop["admitted"], "steps": loop["steps"],
+               "rollovers": loop["rollovers"], "ready_s": st["ready_s"],
+               "flips": st["flips"], "serve_wall_s": loop["wall_s"],
+               "serve_cpu_s": st["serve_cpu_s"],
+               "max_memory_allocated_gb": st["max_memory_allocated"] / 1e9}
+        per_worker.append(row)
+        log(f"drive A worker {row['worker']}: admitted {row['admitted']}, steps "
+            f"{row['steps']}, serve loop {row['serve_wall_s']:.3f} s wall and "
+            f"{row['serve_cpu_s']:.3f} s CPU, flips {row['flips']}, ready "
+            f"{row['ready_s']:.3f} s, "
+            f"peak allocated {row['max_memory_allocated_gb']:.2f} GB; launches "
+            f"{got}, expected {want}")
+        if got != want or loop["rollovers"] != 1:
+            fail(f"drive A worker {row['worker']}: launches {got} != {want} or "
+                 f"rollovers {loop['rollovers']} != 1")
+        for k in ("flash_attention", "rmsnorm", "paged_reloc_copy"):
+            total[k] += got[k]
+        for r in total["flash_routes"]:
+            total["flash_routes"][r] += got["flash_routes"][r]
+    log(f"drive A: launches summed over workers {total}; peak device memory "
+        f"{peak_mib} MiB (nvidia-smi, sampled each second)")
+    log("drive A: " + json.dumps({k: a[k] for k in (
+        "req_per_s", "tok_per_s", "p50_latency_s", "p99_latency_s",
+        "steady_p99_latency_s", "rollover_p99_latency_s", "ttft_p50_s",
+        "ttft_p99_s", "rollover_wall_s", "ready_s", "stalls", "ring_wait_p50_s",
+        "ring_wait_max_s")}) +
+        f", commit {commit['s']:.3f} s, {cores} cores")
+    out["drive_a"] = {"report": a, "launches": total, "workers": per_worker,
+                      "commit_s": commit["s"], "peak_memory_used_mib": peak_mib,
+                      "digest_v3": want_v3, "tokens_check": tokens_check}
+    del v3
+
+    # ---- Drive B: worker 1 SIGKILLs itself mid-stream (its warmup takes
+    # 31 steps, so step 40 falls inside its first measured request)
+    gc = ws.gc(drain=True)
+    log(f"gc(drain=True) before drive B: {len(gc.removed)} removed")
+    out["shm_free_kill"] = shm_free_check(arena_bytes, "drive B's arena")
+    rep = run_traffic(
+        ws, app, arch=ARCH, workers=2, n_requests=KILL_REQUESTS,
+        rate_hz=KILL_RATE_HZ, seed=0, prompt_len=KILL_PROMPT,
+        max_new_tokens=NEW, max_batch=SERVE_SLOTS, strategy="stable-shm",
+        stream=True, supervise=True, faults={"die_at_step": KILL_STEP, "worker": 1},
+        timeout=300, device="cuda", smoke=False)
+    b = drive_summary(rep)
+    log(f"drive B: {json.dumps(b)}")
+    if (rep.completed != KILL_REQUESTS or rep.restarts < 1
+            or rep.rerouted_requests < 1 or rep.failed):
+        fail(f"drive B: completed {rep.completed}, restarts {rep.restarts}, "
+             f"rerouted {rep.rerouted_requests}, errors {rep.worker_errors}")
+    check_streams(rep, KILL_REQUESTS, cfg.vocab_size, "B", dups_allowed=True)
+    respawned = [w for w in rep.worker_stats if w["worker"] == 1]
+    log(f"drive B: kill p99 {rep.kill_p99_s:.4f} s, restarts {rep.restarts}, "
+        f"rerouted {rep.rerouted_requests}, ready_s {rep.ready_s} (the last is "
+        f"the respawned worker's), statistics files "
+        f"{[(w['worker'], w['serve_loop']['admitted']) for w in rep.worker_stats]}")
+    out["drive_b"] = {"report": b, "respawned_ready_s": [w["ready_s"] for w in respawned],
+                      "workers": [{"worker": w["worker"], "launches": w["launches"],
+                                   "serve_loop": w["serve_loop"]}
+                                  for w in rep.worker_stats]}
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no {SRC / 'repro_torch'}: run chip_smoke.py from a checkout")
@@ -976,6 +1327,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
+    from repro_torch.core import shm_arena
 
     resolve_device("cuda")                   # TF32 off for f32 products
     card = card_line()
@@ -984,6 +1336,7 @@ def main() -> None:
     cfg = get_config(ARCH)
     detail = {"card": card, "build": build_kernels()}
     root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
+    ws = None
     try:
         ws, app, host, detail["setup"] = publish(cfg, root)
         kernels = [check_flash(cfg), check_rmsnorm(cfg), check_paged(host.table)]
@@ -991,10 +1344,14 @@ def main() -> None:
         del host
         detail["small_input"] = small_input()
         detail["serve_epoch"] = serve_epoch(cfg, ws, app)
+        detail["traffic"] = traffic_plane(cfg, ws, app)
     finally:
+        if ws is not None:
+            shm_arena.unlink_root_segments(ws.registry)
         shutil.rmtree(root, ignore_errors=True)
     paths = {"main_path": detail["main_path"]["launches"],
-             "serve_epoch": detail["serve_epoch"]["launches"]}
+             "serve_epoch": detail["serve_epoch"]["launches"],
+             "traffic": detail["traffic"]["drive_a"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
@@ -1002,6 +1359,9 @@ def main() -> None:
         if not k["launches"]:
             fail(f"{k['name']} was not launched on the main path")
     detail["kernels"] = kernels
+    detail["empty_profiles"] = EMPTY_PROFILES
+    log(f"device_ms: {len(EMPTY_PROFILES)} profiles recorded no device time "
+        "and were taken again")
     detail["total_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))

@@ -654,17 +654,36 @@ def _close_live_segments() -> None:  # pragma: no cover - interpreter exit
 
 
 # ------------------------------------------------------------------- fleet
+def tensors_digest(tensors) -> str:
+    """blake2b-16 over each tensor's raw bytes in sorted name order: the
+    reference's digest of what a worker serves. Takes numpy arrays (host
+    images; bf16 as its 2-byte stand-in) and torch tensors on any device
+    (device views; bf16 as ``torch.bfloat16``) — the same bytes give the
+    same digest either way."""
+    h = hashlib.blake2b(digest_size=16)
+    for name in sorted(tensors):
+        t = tensors[name]
+        if isinstance(t, np.ndarray):
+            h.update(np.ascontiguousarray(t).reshape(-1).view(np.uint8))
+        else:
+            import torch
+
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            h.update(raw.cpu().numpy())
+    return h.hexdigest()
+
+
 def _fleet_worker(root, app_name, strategy, arch, max_new, barrier, queue,
-                  store_url=None):
+                  store_url=None, device="cuda", smoke=True):
     """Spawn-target for one fleet replica (module-level: picklable by name).
 
-    Imports stay inside the function so a load-only probe never pays the
-    jax import; ``arch`` promotes the worker to a full ``ServeEngine``
-    replica that generates ``max_new`` tokens after attaching. Failures are
-    REPORTED, not swallowed: the worker pushes a structured error record
-    (exception repr + traceback excerpt) so the parent's ``FleetReport``
-    can name what died instead of timing out on silence."""
-    import hashlib as _hashlib
+    Imports stay inside the function so a load-only probe never imports the
+    serving stack; ``arch`` promotes the worker to a full ``ServeEngine``
+    replica on ``device`` (``get_config(arch, smoke=smoke)``) that
+    generates ``max_new`` tokens after attaching. Failures are REPORTED,
+    not swallowed: the worker pushes a structured error record (exception
+    repr + traceback excerpt) so the parent's ``FleetReport`` can name what
+    died instead of timing out on silence."""
     import os as _os
     import time as _time
 
@@ -680,11 +699,6 @@ def _fleet_worker(root, app_name, strategy, arch, max_new, barrier, queue,
         t0 = _time.perf_counter()
         image = ws.load(app_name, strategy=strategy)
         load_s = _time.perf_counter() - t0
-        h = _hashlib.blake2b(digest_size=16)
-        for tname in sorted(image.tensors):
-            h.update(
-                np.ascontiguousarray(image.tensors[tname]).view(np.uint8).tobytes()
-            )
         result = {
             "pid": _os.getpid(),
             "strategy": strategy,
@@ -692,15 +706,15 @@ def _fleet_worker(root, app_name, strategy, arch, max_new, barrier, queue,
             "cache_hit": bool(image.stats.cache_hit),
             "shm_attached": bool(image.stats.shm_attached),
             "segment": image.stats.shm_segment,
-            "tensors_digest": h.hexdigest(),
+            "tensors_digest": tensors_digest(image.tensors),
         }
         if arch is not None:
             from repro_torch.configs import get_config
             from repro_torch.serve import ServeEngine
 
-            cfg = get_config(arch, smoke=True)
+            cfg = get_config(arch, smoke=smoke)
             engine = ServeEngine.from_workspace(
-                cfg, ws, app_name, strategy=strategy
+                cfg, ws, app_name, strategy=strategy, device=device
             )
             rng = np.random.default_rng(0)
             prompts = rng.integers(0, cfg.vocab_size, (2, 8), dtype=np.int32)
@@ -733,9 +747,13 @@ def run_fleet(
     max_new: int = 0,
     timeout: float = 180.0,
     store_url: Optional[str] = None,
+    device="cuda",
+    smoke: bool = True,
 ) -> list[dict]:
     """Spawn ``processes`` real OS worker processes that concurrently load
-    ``app_name`` from the workspace at ``root`` and report back.
+    ``app_name`` from the workspace at ``root`` and report back. With
+    ``arch`` set, each also serves from the load on ``device``, built from
+    ``get_config(arch, smoke=smoke)``.
 
     The exclusive-create protocol guarantees at most ONE worker fills the
     segment; everyone else attaches — the machine-wide analogue of the
@@ -751,14 +769,14 @@ def run_fleet(
 
     if processes < 1:
         raise ValueError("processes must be >= 1")
-    ctx = mp.get_context("spawn")  # never fork a jax/XLA-initialized parent
+    ctx = mp.get_context("spawn")  # never fork a CUDA-initialized parent
     queue = ctx.Queue()
     barrier = ctx.Barrier(processes)
     procs = [
         ctx.Process(
             target=_fleet_worker,
             args=(os.fspath(root), app_name, strategy, arch, max_new,
-                  barrier, queue, store_url),
+                  barrier, queue, store_url, str(device), smoke),
             daemon=True,
         )
         for _ in range(processes)

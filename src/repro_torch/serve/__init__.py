@@ -1,4 +1,4 @@
-from .engine import ServeEngine, ServeStats
+from .engine import FleetReport, ServeEngine, ServeStats
 from .faults import FaultPlan
 from .scheduler import (
     STOP,
@@ -9,10 +9,12 @@ from .scheduler import (
     TokenDelta,
     run_serve_loop,
 )
+from .traffic import TrafficReport, run_traffic
 
 __all__ = [
     "Completion",
     "FaultPlan",
+    "FleetReport",
     "Request",
     "STOP",
     "ServeEngine",
@@ -20,5 +22,7 @@ __all__ = [
     "ServeStats",
     "SlotScheduler",
     "TokenDelta",
+    "TrafficReport",
     "run_serve_loop",
+    "run_traffic",
 ]

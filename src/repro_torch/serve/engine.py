@@ -14,15 +14,19 @@ the last step. Timings synchronise the card (``torch.cuda.synchronize``)
 so they cover the device work, not only its enqueue. ``serve_loop`` is
 continuous batching (``serve/scheduler.py``).
 
-Not ported yet (ROADMAP Queue A items 5 and 7): ``spawn_fleet`` and the
-traffic plane.
+``spawn_fleet`` is the cross-process variant: it spawns N worker
+processes that load the same app (default ``stable-shm``: the machine
+holds one physical copy of the baked arena; at most one worker fills the
+shm segment, every other attaches), optionally serving from it on
+``device`` (``core/shm_arena.py``). The traffic plane, which drives a
+Poisson load into such workers over shm rings, is ``serve/traffic.py``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -33,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.link import strategy_takes_device
 
 from . import faults
+from .scheduler import check_token_ids
 
 
 @dataclass
@@ -44,6 +49,75 @@ class ServeStats:
     @property
     def tok_per_s(self) -> float:
         return self.tokens_out / self.decode_s if self.decode_s else 0.0
+
+
+@dataclass
+class FleetReport:
+    """What one ``ServeEngine.spawn_fleet`` actually did, per worker."""
+
+    processes: int
+    strategy: str
+    wall_s: float = 0.0
+    workers: list = field(default_factory=list)   # one result dict each
+    restarts: int = 0                # supervised workers respawned after death
+    rerouted_requests: int = 0       # in-flight requests re-routed off a corpse
+
+    @property
+    def fills(self) -> int:
+        """Workers that had to publish (fill) the shm segment — the
+        exclusive-create protocol bounds this at 1 per segment, 0 when the
+        segment was already warm. Failed workers never count as fills."""
+        return sum(
+            1
+            for w in self.workers
+            if not w.get("failed") and not w.get("shm_attached")
+        )
+
+    @property
+    def attaches(self) -> int:
+        return len(self.workers) - self.fills - self.failed
+
+    @property
+    def failed(self) -> int:
+        """Workers that crashed (structured error records from
+        ``run_fleet``: exit code + traceback excerpt, surfaced the moment
+        the process dies instead of riding out the join timeout)."""
+        return sum(1 for w in self.workers if w.get("failed"))
+
+    @property
+    def errors(self) -> list:
+        """The failed workers' error records, ready for a log line."""
+        return [
+            {
+                "pid": w.get("pid"),
+                "exit_code": w.get("exit_code"),
+                "error": w.get("error"),
+                "traceback": w.get("traceback", ""),
+            }
+            for w in self.workers
+            if w.get("failed")
+        ]
+
+    @property
+    def segments(self) -> set:
+        return {w.get("segment") for w in self.workers}
+
+    def summary(self) -> dict:
+        return {
+            "processes": self.processes,
+            "strategy": self.strategy,
+            "wall_s": self.wall_s,
+            "fills": self.fills,
+            "attaches": self.attaches,
+            "failed": self.failed,
+            "errors": self.errors,
+            "segments": sorted(s for s in self.segments if s),
+            "pids": [w.get("pid") for w in self.workers],
+            # honest even at zero: a fleet that never needed the supervisor
+            # reports restarts=0, not a missing key
+            "restarts": self.restarts,
+            "rerouted_requests": self.rerouted_requests,
+        }
 
 
 class ServeEngine:
@@ -181,11 +255,69 @@ class ServeEngine:
         self.load_stats = image.stats
         return gen
 
+    @classmethod
+    def spawn_fleet(
+        cls,
+        ws,
+        app_name: str,
+        *,
+        processes: int = 2,
+        strategy: str = "stable-shm",
+        arch: str | None = None,
+        max_new: int = 0,
+        timeout: float = 180.0,
+        store_url: str | None = None,
+        device="cuda",
+        smoke: bool = True,
+    ) -> FleetReport:
+        """Spawn a true multi-process serving fleet over one workspace.
+
+        Each of the ``processes`` workers is a real OS process (spawn
+        context: a CUDA context is never inherited) that opens the
+        workspace at ``ws.root`` and loads ``app_name`` with ``strategy``
+        (default ``stable-shm``): the first worker on the machine publishes
+        the baked arena into a named shm segment, every other replica
+        attaches to that one physical copy. With ``arch`` set, each worker
+        also builds a ``ServeEngine`` on ``device`` from
+        ``get_config(arch, smoke=smoke)`` and greedy-decodes ``max_new``
+        tokens. Returns a ``FleetReport`` (fills/attaches per the
+        one-fill-per-machine contract, per-worker load stats and tensor
+        digests for byte-identity checks).
+
+        ``store_url`` hands every worker a served arena store to fetch
+        missing bakes from (``strategy="stable-remote"``); the store's
+        launcher is not ported yet (ROADMAP Queue A item 12).
+        """
+        from repro_torch.core.shm_arena import run_fleet
+
+        t0 = time.perf_counter()
+        workers = run_fleet(
+            ws.root,
+            app_name,
+            processes=processes,
+            strategy=strategy,
+            arch=arch,
+            max_new=max_new,
+            timeout=timeout,
+            store_url=store_url,
+            device=device,
+            smoke=smoke,
+        )
+        return FleetReport(
+            processes=processes,
+            strategy=strategy,
+            wall_s=time.perf_counter() - t0,
+            workers=workers,
+        )
+
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int):
         """prompts: (B, S) int -> ((B, max_new_tokens) greedy continuations,
-        ServeStats). Tokens stay on the device until the last step."""
+        ServeStats). Tokens stay on the device until the last step. A
+        token id outside the vocabulary raises ``ValueError`` before any
+        launch."""
         cfg = self.cfg
+        check_token_ids(prompts, cfg.vocab_size, "prompts")
         stats = ServeStats()
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
         self._sync()

@@ -228,6 +228,24 @@ def pick_tokens(logits, keys, counters, *, temperature: float, top_k: int):
     return torch.argmax(lg.double() + gumbel, dim=-1).to(torch.int32)
 
 
+def check_token_ids(tokens, vocab_size: int, what: str = "prompt") -> None:
+    """Refuse a token id outside ``[0, vocab_size)`` on the host, before
+    anything is launched: the embedding gather would index out of range,
+    which is an ``IndexError`` on the CPU and a device-side assert on the
+    card (it poisons the process's CUDA context). The reference's
+    ``jnp.take`` fills such rows with NaN instead (ROADMAP Queue C)."""
+    arr = np.asarray(tokens)
+    if arr.size == 0:
+        return
+    lo, hi = int(arr.min()), int(arr.max())
+    if lo < 0 or hi >= vocab_size:
+        bad = lo if lo < 0 else hi
+        raise ValueError(
+            f"{what} holds token id {bad}, outside the vocabulary "
+            f"[0, {vocab_size})"
+        )
+
+
 def _check_family(cfg) -> None:
     if cfg.is_moe:
         raise NotImplementedError(
@@ -318,12 +336,14 @@ class SlotScheduler:
     @torch.inference_mode()
     def admit(self, req: Request, now: float) -> int:
         """Prefill ``req`` (B=1, the engine's ``impl``) and write its cache
-        row into a free slot. Returns the slot index."""
+        row into a free slot. Returns the slot index. A prompt holding a
+        token id outside the vocabulary raises ``ValueError`` first."""
         free = self.free_slots
         if not free:
             raise RuntimeError("admit called with no free slot")
         idx = free[0]
         eng = self.engine
+        check_token_ids(req.prompt, eng.cfg.vocab_size, f"request {req.rid}")
         prompt = host_ints(np.asarray(req.prompt).tolist(), eng.device)
         logits, row_cache = models.prefill(
             eng.cfg, eng.params, {"tokens": prompt.to(torch.int32)[None]},

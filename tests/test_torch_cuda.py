@@ -226,3 +226,50 @@ def test_device_load_on_card_equals_host_image(cuda, tmp_path):
         assert t.device.type == "cuda"
         want = np.ascontiguousarray(host.tensors[name]).reshape(-1).view(np.uint8)
         assert np.array_equal(t.reshape(-1).view(torch.uint8).cpu().numpy(), want), name
+
+
+@pytest.mark.cuda
+def test_run_traffic_on_card_matches_cpu_with_exact_launches(cuda, tmp_path):
+    """Two spawned workers serve gemma3-1b's smoke config (float32: the
+    simt flash route) on the card: each worker's own launch counts are
+    exact (one paged copy for its ``stable`` load, one flash launch per
+    layer per admission, 4 x layers + 1 rmsnorm launches per admission and
+    per step), and every stream equals the same drive's on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EpochCache, shm_arena
+    from repro_torch.launch.serve import publish_model
+    from repro_torch.link import Workspace
+    from repro_torch.serve import run_traffic
+
+    cfg = get_config("gemma3-1b", smoke=True)
+    n, layers = 8, cfg.num_layers
+    ws = Workspace.open(tmp_path / "store", epoch_cache=EpochCache())
+    app = publish_model(ws, cfg, device="cpu")
+    try:
+        reps = {dev: run_traffic(ws, app, arch="gemma3-1b", workers=2, n_requests=n,
+                                 rate_hz=100.0, prompt_len=20, max_new_tokens=4,
+                                 max_batch=2, strategy="stable", stream=True,
+                                 device=dev, timeout=300)
+                for dev in ("cuda", "cpu")}
+    finally:
+        shm_arena.unlink_root_segments(ws.registry)
+    for dev, rep in reps.items():
+        s = rep.summary()
+        assert rep.completed == n and rep.failed == 0, (dev, s)
+        assert rep.stream_gaps == 0 and rep.stream_mismatches == 0, (dev, s)
+        assert set(rep.stream_tokens) == set(range(n)), (dev, s)
+    for rid in range(n):
+        np.testing.assert_array_equal(reps["cuda"].stream_tokens[rid],
+                                      reps["cpu"].stream_tokens[rid])
+    stats = reps["cuda"].worker_stats
+    assert [st["worker"] for st in stats] == [0, 1]
+    assert sum(st["serve_loop"]["admitted"] for st in stats) == n + 2  # + warmups
+    for st in stats:
+        adm, steps = st["serve_loop"]["admitted"], st["serve_loop"]["steps"]
+        assert st["device"].startswith("cuda")
+        assert st["launches"] == {
+            "flash_attention": layers * adm,
+            "rmsnorm": (4 * layers + 1) * (adm + steps),
+            "paged_reloc_copy": 1,
+            "flash_routes": {"wgmma": 0, "simt": layers * adm},
+        }, st

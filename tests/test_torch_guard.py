@@ -47,6 +47,9 @@ def _imported_modules(tree: ast.AST):
 def test_port_sources_import_no_jax_ml_dtypes_or_reference():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 30, "port package not found"
+    for module in ("serve/traffic.py", "serve/engine.py", "core/shm_arena.py",
+                   "launch/serve.py", "kernels/__init__.py"):
+        assert PORT / module in files, module
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -143,16 +146,20 @@ def test_port_imports_with_jax_ml_dtypes_and_reference_blocked():
 
 @pytest.fixture()
 def no_cuda(monkeypatch):
-    """Make the process look card-less, whatever machine runs the test."""
+    """Make the process, and the worker processes it spawns, look
+    card-less, whatever machine runs the test."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from repro_torch import convert, models, resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
+    from repro_torch.core import EpochCache, shm_arena
+    from repro_torch.core.shm_ring import ShmRingError
+    from repro_torch.launch.serve import publish_model, serve
     from repro_torch.link import Workspace
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import ServeEngine, run_traffic
 
     cfg = get_config("gemma3-1b", smoke=True)
     specs = models.param_specs(cfg)
@@ -168,3 +175,20 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()
     assert resolve_device("cpu").type == "cpu"     # the CPU only on request
+
+    # worker processes of the traffic plane and the fleet: each reports an
+    # error naming CUDA, and nothing completes on the CPU
+    ws = Workspace.open(tmp_path / "fleet", epoch_cache=EpochCache())
+    app = publish_model(ws, cfg, device="cpu")
+    try:
+        with pytest.raises(ShmRingError, match="torch.cuda.is_available"):
+            run_traffic(ws, app, arch="gemma3-1b", workers=2, n_requests=2,
+                        prompt_len=8, max_new_tokens=2, timeout=120)
+        fleet = ServeEngine.spawn_fleet(ws, app, processes=2, arch="gemma3-1b",
+                                        timeout=120)
+        assert fleet.failed == 2, fleet.summary()
+        for err in fleet.errors:
+            assert "torch.cuda.is_available" in err["error"] + err["traceback"]
+            assert err["exit_code"] not in (None, 0)
+    finally:
+        shm_arena.unlink_root_segments(ws.registry)
