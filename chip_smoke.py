@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 2,7]
 
 Phases (any failure exits non-zero; no phase is skipped or caught):
 
@@ -35,8 +35,9 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    the device arena must equal the host image's bytes. Its prefill logits
    must be finite and, against a float32 plain-attention run on the card,
    no further off than 1.5x the bf16 plain-attention run;
-4. small input: gemma3-1b's smoke config on the card (kernels) and on the
-   CPU (plain versions, which the CPU tests hold against the JAX
+4. small input: the smoke configs of gemma3-1b, olmoe-1b-7b,
+   qwen2-moe-a2.7b and seamless-m4t-large-v2 on the card (kernels) and on
+   the CPU (plain versions, which the CPU tests hold against the JAX
    reference) give the same logits within 1e-4 and the same greedy tokens;
    and the same ``serve_loop`` (float32, mixed prompt lengths, 2 slots)
    gives identical completions on both, greedy and sampled;
@@ -76,7 +77,30 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
      request. It must complete 12 of 12 with at least one restart and
      one re-route and every stream whole.
    The flip-window latencies include the commit's wall time: the
-   dispatcher runs ``rollover_fn`` synchronously, as the reference's does.
+   dispatcher runs ``rollover_fn`` synchronously, as the reference's does;
+7. olmoe-1b-7b at its published widths (16 layers, d 2048, 64 experts
+   top-8, bf16, random weights from seed 0) in a fresh Workspace: phase
+   3's static batch (exactly 1 paged copy, 16 flash launches a prefill, all
+   wgmma, 65 rmsnorm launches a prefill and a decode step, every slot
+   byte-equal to the host image); each MoE layer of the kernel-path
+   prefill held against an independent host routing (stable top-k, slot
+   places, capacity per row: exactly equal) and a float32 FFN per expert
+   (within MOE_OUT_TOL); the prefill logits finite, their error against a
+   float32 run reported with the tokens routed differently; every token
+   within tolerance of a teacher-forced float32 run (``tokens_check``);
+   then ``serve_loop(max_batch=4)`` over 8 greedy requests of mixed prompt
+   lengths (256..1024), all complete, launches exact, tokens checked;
+8. seamless-m4t-large-v2 at its published widths (24 encoder and 24
+   decoder layers, d 1024, hd 64, LayerNorm, bf16): the static batch with
+   72 flash launches a prefill (24 of them non-causal cross-attention), 0
+   rmsnorm, 1 paged copy, byte-equal slots, prefill logits within 1.5x the
+   bf16 plain run's error of a float32 run, tokens checked; then
+   ``serve_loop(max_batch=4)`` over 8 requests of mixed prompt lengths,
+   which the reference's scheduler cannot serve: all complete, launches
+   exact, tokens checked.
+
+``--phases`` runs only the listed phases (the build always runs) and prints
+no result lines: it is for development on the card.
 
 Output: progress lines, then the kernel record as one JSON line, the
 card's name and power limit, and last the contract line
@@ -132,9 +156,25 @@ KILL_REQUESTS, KILL_PROMPT, KILL_RATE_HZ = 12, 256, 4.0
 KILL_STEP = 40                # worker 1's warmup takes 31 steps: mid-stream
 # the reference's paged-copy cases (tests/test_kernels.py): (pages, copies)
 PAGED_CASES = [(4, 2), (64, 64), (128, 37)]
+# the MoE and encoder-decoder families at their published widths (phases 7
+# and 8): the same static batch, then serve_loop over mixed prompt lengths
+MOE_ARCH, ENCDEC_ARCH = "olmoe-1b-7b", "seamless-m4t-large-v2"
+MOE_FLASH, MOE_RMS = 16, 65   # per prefill; rmsnorm 4 a layer + final norm
+ENCDEC_FLASH, ENCDEC_CROSS = 72, 24   # 24 encoder + 24 decoder self, 24 cross
+MIX_REQUESTS = 8              # serve_loop requests of SERVE_LENS tokens
+# an MoE layer's output against the per-expert float32 FFN, relative to the
+# layer's largest output value (bf16 rounds each product and sum at 2**-8)
+MOE_OUT_TOL = 0.03
+# olmoe's forward logits: the kernel path's mean error against a float32
+# run, at most this times the bf16 plain-attention run's. A mean over all
+# 4 x 1024 x 50304 logits: routing flips near ties (a fifth of the
+# token-layers between any two bf16 runs) make a max over a few positions
+# swing from run to run
+MOE_LOGIT_RATIO = 1.5
 
 # device_ms profiles that recorded no device time (each is taken again)
 EMPTY_PROFILES: list[dict] = []
+T0 = time.perf_counter()      # the stamp of every log line counts from here
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 tensor flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -143,7 +183,8 @@ F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A progress line, stamped with the seconds since the script started."""
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -466,6 +507,74 @@ def simt_at_smoke_shapes() -> dict:
     return row
 
 
+def flash_path_cases() -> dict:
+    """The prefill shapes of phases 7 and 8 (B, Sq, Sk, H, KV, hd, causal,
+    window): olmoe at hd 128, seamless's self-attention at hd 64 and its
+    cross-attention, non-causal, over the encoder's 1024 positions."""
+    from repro_torch.configs import get_config
+
+    moe, ed = get_config(MOE_ARCH), get_config(ENCDEC_ARCH)
+    return {
+        f"{MOE_ARCH} self": (BATCH, PROMPT, PROMPT, moe.num_heads, moe.num_kv_heads,
+                             moe.resolved_head_dim, True, 0),
+        f"{ENCDEC_ARCH} self": (BATCH, PROMPT, PROMPT, ed.num_heads, ed.num_kv_heads,
+                                ed.resolved_head_dim, True, 0),
+        f"{ENCDEC_ARCH} cross": (BATCH, PROMPT, PROMPT, ed.num_heads, ed.num_kv_heads,
+                                 ed.resolved_head_dim, False, 0),
+    }
+
+
+def check_flash_paths() -> list[dict]:
+    """flash_attention at the new paths' shapes: against its plain version
+    (bf16 within 2e-2, on the wgmma route), then timed beside SDPA and its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for what, case in flash_path_cases().items():
+        B, Sq, Sk, H, KV, hd, causal, window = case
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for S, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+        before = fa.launches_by_route["wgmma"]
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if fa.launches_by_route["wgmma"] != before + 1:
+            fail(f"flash_attention {what}: the wgmma route did not launch")
+        err = (got.float() - fa.flash_attention_plain(q, k, v, causal=causal).float()
+               ).abs().max().item()
+        if not err <= FA_TOL["bfloat16"]:
+            fail(f"flash_attention {what} {case}: max err {err} > {FA_TOL['bfloat16']}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+
+        row = {"path": what, "case": case, "max_abs_err": err,
+               "ms": time_ms(kernel),
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                                    causal=causal)),
+               "library_ms": time_ms(library),
+               "device_ms": device_ms(kernel, f"flash {what}"),
+               "library_device_ms": device_ms(library, f"sdpa {what}")}
+        row["bound_ms"], row["bound_by"] = bound_ms(*flash_work(case), BF16_FLOPS)
+        rows.append(row)
+        log(f"flash_attention {what} {case}: err {err:.2e}, kernel {row['ms']:.4f} ms "
+            f"(device {row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f} ms), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
 def device_ms(fn, what: str, calls: int = 50, attempts: int = 3) -> float:
     """Mean device time of ``fn``'s kernels per call, from torch.profiler
     (the CUDA-event times of small launches measure the host instead). A
@@ -517,17 +626,56 @@ def rms_mix(cfg) -> dict:
     return mix
 
 
-def check_rmsnorm(cfg) -> dict:
+def rms_rows(mix: dict, g) -> list[dict]:
+    """rmsnorm timed at each (rows, d) of a main-path mix: the kernel and
+    ``F.rms_norm`` in turns (their calls' time is the host's), the plain
+    version, profiler device times, and the bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm import ops as rn
 
+    out = []
+    for (rows, d), n in sorted(mix.items()):
+        x = torch.randn((rows, d), generator=g, device="cuda", dtype=torch.bfloat16)
+        s = torch.randn((d,), generator=g, device="cuda", dtype=torch.bfloat16)
+        ms, library_ms = time_pair_ms(lambda: rn.rmsnorm(x, s),
+                                      lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6))
+        row = {
+            "shape": (rows, d),
+            "ms": ms,
+            "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, s)),
+            "library_ms": library_ms,
+            "device_ms": device_ms(lambda: rn.rmsnorm(x, s), f"rmsnorm {rows}x{d}"),
+            "library_device_ms": device_ms(
+                lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6), f"F.rms_norm {rows}x{d}"),
+        }
+        row["bytes"], row["flops"] = (2 * rows * d + d) * 2, 4.0 * rows * d
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], F32_FLOPS)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["weight"] = n
+        out.append(row)
+        log(f"rmsnorm {(rows, d)} x{n}: kernel {row['ms']:.4f} ms a call (device "
+            f"{row['device_ms'] * 1e3:.3f} us, {row['bound_share']:.1%} of the bound), "
+            f"plain {row['plain_ms']:.4f} ms, F.rms_norm {row['library_ms']:.4f} ms "
+            f"(device {row['library_device_ms'] * 1e3:.3f} us), bound "
+            f"{row['bound_ms']:.5f} ms")
+    return out
+
+
+def check_rmsnorm(cfg, other) -> dict:
+    """rmsnorm against its plain version at the sweep cases and at both
+    configs' main-path shapes, then timed at each; the record's times are
+    ``cfg``'s mix, ``other``'s go to ``_per_shape_other``."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    mix = rms_mix(cfg)
+    mix, other_mix = rms_mix(cfg), rms_mix(other)
     errs, worst_serving = [], 0.0
-    for shape in RMS_CASES + sorted(mix):
+    for shape in RMS_CASES + sorted(set(mix) | set(other_mix)):
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dt)
             s = torch.randn(shape[-1], generator=g, device=dev).to(dt)
@@ -556,36 +704,11 @@ def check_rmsnorm(cfg) -> dict:
                  "max_abs_err": err.max().item()})
     log(f"rmsnorm: {len(errs)} cases agree with the plain version")
 
+    per_shape = rms_rows(mix, g)
     total = sum(mix.values())
-    per_shape, totals = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    work = []
-    for (rows, d), n in sorted(mix.items()):
-        x = torch.randn((rows, d), generator=g, device=dev, dtype=torch.bfloat16)
-        s = torch.randn((d,), generator=g, device=dev, dtype=torch.bfloat16)
-        ms, library_ms = time_pair_ms(lambda: rn.rmsnorm(x, s),
-                                      lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6))
-        row = {
-            "shape": (rows, d),
-            "ms": ms,
-            "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, s)),
-            "library_ms": library_ms,
-            "device_ms": device_ms(lambda: rn.rmsnorm(x, s), f"rmsnorm {rows}x{d}"),
-            "library_device_ms": device_ms(
-                lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6), f"F.rms_norm {rows}x{d}"),
-        }
-        nbytes, flops = (2 * rows * d + d) * 2, 4.0 * rows * d
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS)
-        row["bound_share"] = row["bound_ms"] / row["device_ms"]
-        work.append((n, nbytes, flops))
-        row["weight"] = n
-        per_shape.append(row)
-        for key in totals:
-            totals[key] += row[key] * n / total
-        log(f"rmsnorm {(rows, d)} x{n}: kernel {row['ms']:.4f} ms a call (device "
-            f"{row['device_ms'] * 1e3:.3f} us, {row['bound_share']:.1%} of the bound), "
-            f"plain {row['plain_ms']:.4f} ms, F.rms_norm {row['library_ms']:.4f} ms "
-            f"(device {row['library_device_ms'] * 1e3:.3f} us), bound "
-            f"{row['bound_ms']:.5f} ms")
+    totals = {key: sum(r[key] * r["weight"] for r in per_shape) / total
+              for key in ("ms", "plain_ms", "library_ms", "device_ms")}
+    log(f"rmsnorm at {other.name}'s shapes:")
     return {
         "name": "rmsnorm",
         "route": "cuda",
@@ -593,10 +716,11 @@ def check_rmsnorm(cfg) -> dict:
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:31",
         "max_abs_err": worst_serving,
         **totals,
-        "device_ms": sum(r["device_ms"] * r["weight"] for r in per_shape) / total,
-        **mix_bound(work, F32_FLOPS),
+        **mix_bound([(r["weight"], r["bytes"], r["flops"]) for r in per_shape],
+                    F32_FLOPS),
         "_cases": errs,
         "_per_shape": per_shape,
+        "_per_shape_other": {"arch": other.name, "rows": rms_rows(other_mix, g)},
     }
 
 
@@ -754,103 +878,145 @@ def profiled(run, what: str) -> dict:
     return out
 
 
-def main_path(cfg, ws, host) -> dict:
+def decode_bytes(cfg, params, cache_rows: float) -> float:
+    """Bytes one decode step of a BATCH-row batch must move: every weight
+    of the decoder but the embedding table (of which BATCH rows, unless it
+    is the tied output layer), and each layer's keys and values over
+    ``cache_rows`` rows (an encoder-decoder's cross keys and values over
+    PROMPT rows; its encoder is not read)."""
+    encoder = ("enc/", "enc_final_norm/", "frontend/")
+    nbytes = sum(t.numel() * t.element_size() for n, t in params.items()
+                 if (n != "embed/tokens" or cfg.tie_embeddings)
+                 and not n.startswith(encoder))
+    nbytes += BATCH * cfg.d_model * 2
+    kv_row = cfg.num_layers * BATCH * cfg.num_kv_heads * cfg.resolved_head_dim * 2 * 2
+    return nbytes + kv_row * (cache_rows + (PROMPT if cfg.is_encdec else 0))
+
+
+def static_batch(cfg, ws, host, want: dict) -> tuple:
+    """The static batch of phases 3, 7 and 8: ``serve`` with ``strategy=
+    "stable"`` (1 paged copy) over BATCH prompts of PROMPT tokens, NEW new
+    tokens; the launch counts must equal ``want``, every slot the host
+    image's bytes; then the same ``generate`` again, and once more
+    profiled. Returns (the ``ServeRun``, its figures)."""
     import torch
 
-    from repro_torch import models
     from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch.serve import serve
 
     zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = serve(cfg, ws, batch=BATCH, prompt_len=PROMPT, max_new=NEW,
                 strategy="stable", device="cuda")
     wall = time.perf_counter() - t0
-    got = launch_counts()
-    want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
-            "paged_reloc_copy": 1,
-            "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
-    log(f"main path ran in {wall:.1f} s; launches {got}, expected {want}")
+    got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+    log(f"{cfg.name} static batch ran in {wall:.1f} s; launches {got}, expected {want}")
     if got != want:
-        fail(f"kernel launches {got} != {want}")
-    s = run.summary
+        fail(f"{cfg.name}: kernel launches {got} != {want}")
     if tuple(run.tokens.shape) != (BATCH, NEW) or not (
-        0 <= run.tokens.min() and run.tokens.max() < cfg.vocab_size
-    ):
-        fail(f"bad tokens {run.tokens.shape}")
+            0 <= run.tokens.min() and run.tokens.max() < cfg.vocab_size):
+        fail(f"{cfg.name}: bad tokens {run.tokens.shape}")
     engine = run.engine
     slots_equal(engine.params, host)
     split = load_split(engine.load_stats)
-    log(f"device arena equals the host image in all {len(host.tensors)} slots; "
-        f"load split {json.dumps(split)}")
-    # steady state: the same generate again, kernels and cuBLAS warm
+    log(f"{cfg.name}: device arena equals the host image in all {len(host.tensors)} "
+        f"slots; load split {json.dumps(split)}")
     _, steady = engine.generate(run.prompts, NEW)
 
     def steady_generate():
         _, stats = engine.generate(run.prompts, NEW)
         return {"prefill_s": stats.prefill_s, "decode_s": stats.decode_s}
 
-    profile = profiled(steady_generate, "generate")
+    profile = profiled(steady_generate, f"{cfg.name} generate")
+    step_s = steady.decode_s / (NEW - 1)
+    mean_rows = PROMPT + NEW / 2
+    nbytes = decode_bytes(cfg, engine.params, mean_rows)
+    s = run.summary
+    out = {"launches": got, "wall_s": wall, "load_strategy": s["load_strategy"],
+           "load_s": s["load_s"], "load_split": split, "prefill_s": s["prefill_s"],
+           "decode_s": s["decode_s"], "tok_per_s": s["tok_per_s"],
+           "steady_prefill_s": steady.prefill_s, "steady_decode_s": steady.decode_s,
+           "steady_tok_per_s": steady.tok_per_s, "decode_step_s": step_s,
+           "decode_step_bytes": nbytes,
+           "decode_step_bound_s": nbytes / HBM_BYTES_PER_S, "profile": profile,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{cfg.name} static batch: " + json.dumps({k: out[k] for k in (
+        "load_s", "prefill_s", "steady_prefill_s", "steady_decode_s",
+        "steady_tok_per_s", "decode_step_s", "decode_step_bytes",
+        "decode_step_bound_s", "peak_mem_gb")}))
+    return run, out
 
-    tokens = torch.as_tensor(run.prompts, device="cuda")
+
+def prefill_logits_check(cfg, params, batch) -> dict:
+    """Prefill logits of the kernel path: finite, and against a float32
+    plain-attention run on the card no further off than 1.5x the bf16
+    plain-attention run."""
+    import torch
+
+    from repro_torch import models
+
     with torch.inference_mode():
-        kern, _ = models.prefill(cfg, engine.params, {"tokens": tokens}, impl="kernel")
-        plain, _ = models.prefill(cfg, engine.params, {"tokens": tokens}, impl="naive")
-        p32 = {n: t.float() for n, t in engine.params.items()}
-        ref, _ = models.prefill(cfg.replace(dtype="float32"), p32,
-                                {"tokens": tokens}, impl="naive")
+        kern, _ = models.prefill(cfg, params, batch, impl="kernel")
+        plain, _ = models.prefill(cfg, params, batch, impl="naive")
+        p32 = {n: t.float() for n, t in params.items()}
+        ref, _ = models.prefill(cfg.replace(dtype="float32"), p32, batch, impl="naive")
         del p32
     if not bool(torch.isfinite(kern).all()):
-        fail("prefill logits are not finite")
+        fail(f"{cfg.name}: prefill logits are not finite")
     err_k = (kern.float() - ref).abs().max().item()
     err_p = (plain.float() - ref).abs().max().item()
-    log(f"prefill logits vs f32 plain: kernel path {err_k:.5f}, bf16 plain "
+    log(f"{cfg.name} prefill logits vs f32 plain: kernel path {err_k:.5f}, bf16 plain "
         f"path {err_p:.5f}")
     if not err_k <= 1.5 * err_p:
-        fail(f"kernel path error {err_k} > 1.5 x bf16 plain error {err_p}")
-    result = {
-        "launches": got,
-        "wall_s": wall,
-        "load_strategy": s["load_strategy"],
-        "load_s": s["load_s"],
-        "load_split": split,
-        "prefill_s": s["prefill_s"],
-        "decode_s": s["decode_s"],
-        "tok_per_s": s["tok_per_s"],
-        "steady_prefill_s": steady.prefill_s,
-        "steady_decode_s": steady.decode_s,
-        "steady_tok_per_s": steady.tok_per_s,
-        "logits_err_kernel": err_k,
-        "logits_err_bf16_plain": err_p,
-        "profile": profile,
-        "n_params": models.n_params(cfg),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
-    log("main path: " + json.dumps({k: result[k] for k in (
-        "load_s", "prefill_s", "decode_s", "tok_per_s", "steady_prefill_s",
-        "steady_decode_s", "steady_tok_per_s")}))
-    del run, engine
+        fail(f"{cfg.name}: kernel path error {err_k} > 1.5 x bf16 plain error {err_p}")
+    del kern, plain, ref
+    torch.cuda.empty_cache()
+    return {"logits_err_kernel": err_k, "logits_err_bf16_plain": err_p}
+
+
+def main_path(cfg, ws, host) -> dict:
+    import torch
+
+    from repro_torch import models
+
+    want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
+            "paged_reloc_copy": 1, "non_causal": 0,
+            "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
+    run, result = static_batch(cfg, ws, host, want)
+    result.update(prefill_logits_check(
+        cfg, run.engine.params, {"tokens": torch.as_tensor(run.prompts, device="cuda")}))
+    result["n_params"] = models.n_params(cfg)
+    del run
     torch.cuda.empty_cache()
     return result
 
 
 # --------------------------------------------------------------- phase 4
-def small_input() -> dict:
+def small_input(arch: str) -> dict:
+    """``arch``'s smoke config on the card and on the CPU: prefill logits
+    within 1e-4, the same greedy tokens, and identical ``serve_loop``
+    completions (mixed prompt lengths, 2 slots), greedy and sampled."""
     import numpy as np
     import torch
 
     from repro_torch import models
     from repro_torch.configs import get_config
+    from repro_torch.serve import STOP, Request, ServeEngine
+    from repro_torch.serve.scheduler import stub_frames
 
-    cfg = get_config(ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     cpu = models.init_params(cfg, 0, "cpu")
     gpu = {n: t.to("cuda") for n, t in cpu.items()}
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40), dtype=np.int32)
     outs = {}
     with torch.inference_mode():
         for dev, params in (("cpu", cpu), ("cuda", gpu)):
-            t = torch.as_tensor(toks, device=dev)
-            logits, cache = models.prefill(cfg, params, {"tokens": t}, cache_len=48)
+            batch = {"tokens": torch.as_tensor(toks, device=dev)}
+            if cfg.is_encdec:
+                batch["frames"] = stub_frames(cfg, 2, 40, dev)
+            logits, cache = models.prefill(cfg, params, batch, cache_len=48)
             tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
             seq = [tok]
             for _ in range(7):
@@ -860,13 +1026,11 @@ def small_input() -> dict:
             outs[dev] = (logits.float().cpu(), torch.cat(seq, 1).cpu())
     err = (outs["cpu"][0] - outs["cuda"][0]).abs().max().item()
     same = torch.equal(outs["cpu"][1], outs["cuda"][1])
-    log(f"smoke config card vs CPU: logits err {err:.2e}, tokens equal {same}")
+    log(f"{cfg.name} card vs CPU: logits err {err:.2e}, tokens equal {same}")
     if not (err <= 1e-4 and same):
-        fail("card and CPU disagree on the smoke config")
+        fail(f"card and CPU disagree on {cfg.name}")
 
-    # the same serve_loop on both: mixed lengths around the window of 16
-    from repro_torch.serve import STOP, Request, ServeEngine
-
+    # the same serve_loop on both: mixed lengths around gemma3's window of 16
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
                for n in (12, 16, 21, 9, 30)]
@@ -884,8 +1048,8 @@ def small_input() -> dict:
             loops[(dev, mode)] = done
     for mode in ("greedy", "sampled"):
         if loops[("cpu", mode)] != loops[("cuda", mode)] or len(loops[("cpu", mode)]) != 5:
-            fail(f"{mode} serve_loop differs between card and CPU")
-    log("smoke serve_loop card vs CPU: identical completions, greedy and sampled")
+            fail(f"{cfg.name}: {mode} serve_loop differs between card and CPU")
+    log(f"{cfg.name} serve_loop card vs CPU: identical completions, greedy and sampled")
     return {"logits_err": err, "tokens_equal": same, "serve_loop_equal": True}
 
 
@@ -1317,7 +1481,363 @@ def traffic_plane(cfg, ws, app) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phases 7-8
+def moe_layer_check(args, kw, out) -> dict:
+    """One MoE layer of a bf16 run held against an independent computation
+    on the same inputs ``args = (x, router_w, w_gate, w_up, w_down)``.
+
+    Routing: the port's ``moe.route`` against the host's, made from the
+    same router probabilities with numpy: a stable descending argsort (the
+    lower expert first among equal values), each slot's place counted slot
+    by slot, token-major, per batch row, and kept below ``capacity`` from
+    that row's length. Output: ``out`` (the layer's ``moe_block`` result)
+    against a float32 FFN per expert over the tokens the host keeps,
+    combined with renormalised probabilities; the error is within
+    ``out_tol`` = MOE_OUT_TOL x the largest value of that FFN."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    x, router_w, w_gate, w_up, w_down = args
+    k, cf = kw["k"], kw["capacity_factor"]
+    r = moe.route(x, router_w, k=k, capacity_factor=cf)
+    probs = r.probs.float().cpu().numpy()
+    B, S, E = probs.shape
+    order = np.argsort(-probs, axis=-1, kind="stable")
+    top_e = order[..., :k]
+    ranked = np.take_along_axis(probs, order[..., :k + 1], -1)
+    cap = min(max(1, math.ceil(k * S / E * cf)), S * k)
+    flat = top_e.reshape(B, S * k)
+    pos = np.empty_like(flat)
+    for b in range(B):
+        seen = np.zeros(E, np.int64)
+        for i, e in enumerate(flat[b]):
+            pos[b, i] = seen[e]
+            seen[e] += 1
+    keep = pos < cap
+    got_e = r.top_e.cpu().numpy()
+    res = {
+        "tokens": B * S,
+        "tied_tokens": int((np.diff(ranked, axis=-1) == 0).any(-1).sum()),
+        "dropped_slots": int((~keep).sum()),
+        "capacity": cap,
+        "routing_mismatches": int((got_e != top_e).any(-1).sum()) + (r.capacity != cap),
+        "pos_mismatches": int((r.pos.cpu().numpy() != pos).sum()),
+        "keep_mismatches": int((r.keep.cpu().numpy() != keep).sum()),
+    }
+    top_p = np.take_along_axis(probs, top_e, -1)
+    top_p = (top_p / np.maximum(top_p.sum(-1, keepdims=True), 1e-9)).reshape(B, S * k)
+    xf = x.float()
+    ref = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for e in range(E):
+        b_idx, slot = np.nonzero((flat == e) & keep)
+        if not b_idx.size:
+            continue
+        bi = torch.as_tensor(b_idx, device=x.device)
+        si = torch.as_tensor(slot // k, device=x.device)
+        xs = xf[bi, si]
+        h = F.silu(xs @ w_gate[e].float()) * (xs @ w_up[e].float())
+        y = h @ w_down[e].float()
+        w = torch.as_tensor(top_p[b_idx, slot], dtype=torch.float32, device=x.device)
+        ref.index_put_((bi, si), y * w[:, None], accumulate=True)
+    res["out_err"] = (out.float() - ref).abs().max().item()
+    res["out_tol"] = MOE_OUT_TOL * ref.abs().max().item()
+    return res
+
+
+class MoeSpy:
+    """Within ``with MoeSpy() as spy``, every ``moe.moe_block`` call of the
+    models is recorded in ``spy.calls`` as (args, kwargs, output)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._orig = [], moe, moe.moe_block
+
+        def spy(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.calls.append((args, kw, out[0]))
+            return out
+
+        moe.moe_block = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_block = self._orig
+
+
+def routing_changes(a: list, b: list) -> dict:
+    """Tokens whose top-k expert set (and whose order) differs between two
+    runs' MoE calls, layer by layer, over every layer."""
+    from repro_torch.models import moe
+
+    sets = order = total = 0
+    for (args_a, kw, _), (args_b, _, _) in zip(a, b):
+        ea = moe.route(*args_a[:2], **kw).top_e
+        eb = moe.route(*args_b[:2], **kw).top_e
+        order += int((ea != eb).any(-1).sum())
+        sets += int((ea.sort(-1).values != eb.sort(-1).values).any(-1).sum())
+        total += ea.shape[0] * ea.shape[1]
+    return {"token_layers": total, "set_changed": sets, "order_changed": order}
+
+
+def tokens_check(cfg, params, prompts: list, streams: list, frames=None) -> dict:
+    """Greedy streams held against an independent computation: each prompt
+    prefilled with plain attention, no slots, then decoded step by step fed
+    its served stream (teacher forcing), in float32 and in bf16; requests
+    whose prompts have one length run as one batch. An encoder-decoder's
+    frames are ``frames[i]``, by default stubbed for the prompt alone, as a
+    slot admission stubs them. (A forward of prompt + stream is no
+    reference for an MoE model: capacity, and so which tokens drop,
+    depends on the sequence's length.) A served token must be the float32
+    argmax or fall below its max by at most 3x the bf16 run's largest logit
+    error for that request."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.serve.scheduler import stub_frames
+
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = {n: t.float() for n, t in params.items()}
+    out = {"streams": len(streams), "positions": 0, "argmax_equal": 0,
+           "max_margin_over_tol": 0.0, "tol": []}
+
+    def teacher_forced(c, p, batch, fed):
+        logits, cache = models.prefill(c, p, batch, impl="naive",
+                                       cache_len=batch["tokens"].shape[1] + fed.shape[1])
+        rows = [logits[:, -1]]
+        for j in range(fed.shape[1] - 1):
+            logits, cache = models.decode_step(c, p, cache, fed[:, j:j + 1])
+            rows.append(logits[:, -1])
+        return torch.stack(rows, 1).float()              # (B, new, V)
+
+    groups: dict = {}
+    for i, prompt in enumerate(prompts):
+        groups.setdefault(len(prompt), []).append(i)
+    for plen, idx in sorted(groups.items()):
+        batch = {"tokens": torch.as_tensor(np.stack([prompts[i] for i in idx]),
+                                           device="cuda")}
+        if cfg.is_encdec:
+            batch["frames"] = torch.cat(
+                [stub_frames(cfg, 1, plen, "cuda") if frames is None else frames[i]
+                 for i in idx])
+        fed = torch.as_tensor(np.stack([streams[i] for i in idx]), device="cuda")
+        with torch.inference_mode():
+            l32 = teacher_forced(cfg32, p32, batch, fed.to(torch.int32))
+            lbf = teacher_forced(cfg, params, batch, fed.to(torch.int32))
+        tol = 3 * (lbf - l32).abs().amax(dim=(1, 2))         # per request
+        margin = l32.amax(-1) - l32.gather(-1, fed.long()[..., None])[..., 0]
+        out["positions"] += margin.numel()
+        out["argmax_equal"] += int((l32.argmax(-1) == fed).sum())
+        ratio = (margin / torch.clamp(tol, min=1e-30)[:, None]).max().item()
+        out["max_margin_over_tol"] = max(out["max_margin_over_tol"], ratio)
+        out["tol"] += tol.tolist()
+        if bool((margin > tol[:, None]).any()):
+            fail(f"{cfg.name}: served tokens of prompts of {plen} fall below the "
+                 f"float32 run's max beyond 3x the bf16 error {tol.tolist()}")
+        del l32, lbf
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixed_requests(cfg) -> list:
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    lens = rng.choice(SERVE_LENS, MIX_REQUESTS)
+    if len(set(lens)) < 2:
+        fail(f"the mixed requests drew one prompt length: {lens}")
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (int(n),),
+                                               dtype=np.int32),
+                    max_new_tokens=NEW) for i, n in enumerate(lens)]
+
+
+def serve_mixed(cfg, engine, per_admission: dict, per_step: dict) -> dict:
+    """``serve_loop(max_batch=4)`` over MIX_REQUESTS greedy requests of
+    mixed prompt lengths: all complete, launch counts exact, every stream
+    within tolerance of a float32 run (``tokens_check``)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.serve import STOP
+
+    reqs = mixed_requests(cfg)
+    feed = iter(reqs + [STOP])
+    done = {}
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    rep = engine.serve_loop(lambda: next(feed, STOP), lambda c: done.setdefault(c.rid, c),
+                            max_batch=SERVE_SLOTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+    want = {k: per_admission.get(k, 0) * rep.admitted + per_step.get(k, 0) * rep.steps
+            for k in ("flash_attention", "rmsnorm", "paged_reloc_copy", "non_causal")}
+    want["flash_routes"] = {"wgmma": want["flash_attention"], "simt": 0}
+    s = rep.summary()
+    log(f"{cfg.name} serve_loop: {json.dumps(s)}; launches {got}, expected {want}")
+    if got != want:
+        fail(f"{cfg.name} serve_loop launches {got} != {want}")
+    if rep.completed != MIX_REQUESTS or set(done) != set(range(MIX_REQUESTS)):
+        fail(f"{cfg.name} serve_loop completed {rep.completed} of {MIX_REQUESTS}")
+    check = tokens_check(cfg, engine.params, [r.prompt for r in reqs],
+                         [done[r.rid].tokens for r in reqs])
+    log(f"{cfg.name} serve_loop: all {check['positions']} served tokens within "
+        f"tolerance of a float32 run ({check['argmax_equal']} its argmax, "
+        f"{check['max_margin_over_tol']:.3f} of the tolerance at most)")
+    return {"report": s, "launches": got, "prompt_lens": [len(r.prompt) for r in reqs],
+            "wall_s": wall, "req_per_s": rep.completed / wall,
+            "tok_per_s": rep.tokens_out / wall, "tokens_check": check}
+
+
+def fresh_workspace(cfg) -> tuple:
+    """A new Workspace root holding ``cfg``'s app (seed 0, made on the
+    card), the app loaded on the host, and the set-up times."""
+    root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
+    free = shutil.disk_usage(root).free
+    log(f"{cfg.name}: {free / 1e9:.1f} GB free on the workspace's disk")
+    return (root,) + publish(cfg, root)
+
+
+def moe_path() -> dict:
+    """Phase 7: olmoe-1b-7b at its published widths."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    root, ws, app, host, setup = fresh_workspace(cfg)
+    try:
+        per_prefill = {"flash_attention": MOE_FLASH, "rmsnorm": MOE_RMS}
+        want = {"flash_attention": MOE_FLASH, "rmsnorm": MOE_RMS * NEW,
+                "paged_reloc_copy": 1, "non_causal": 0,
+                "flash_routes": {"wgmma": MOE_FLASH, "simt": 0}}
+        run, out = static_batch(cfg, ws, host, want)
+        del host
+        out.update(setup=setup, n_params=models.n_params(cfg),
+                   n_active_params=models.n_active_params(cfg))
+        engine = run.engine
+        tokens = torch.as_tensor(run.prompts, device="cuda")
+        runs = {}
+        with torch.inference_mode():
+            for name, c, params, impl in (
+                    ("kernel", cfg, engine.params, "kernel"),
+                    ("bf16 plain", cfg, engine.params, "naive"),
+                    ("f32 plain", cfg.replace(dtype="float32"), None, "naive")):
+                if params is None:
+                    params = {n: t.float() for n, t in engine.params.items()}
+                with MoeSpy() as spy:
+                    logits, _ = models.forward(c, params, {"tokens": tokens}, impl=impl)
+                runs[name] = (logits.float(), spy.calls)
+                del params, logits
+        layers = [moe_layer_check(a, kw, o) for a, kw, o in runs["kernel"][1]]
+        if len(layers) != cfg.num_layers:
+            fail(f"{cfg.name}: {len(layers)} MoE layers ran, not {cfg.num_layers}")
+        totals = {k: sum(r[k] for r in layers) for k in (
+            "tokens", "tied_tokens", "dropped_slots", "routing_mismatches",
+            "pos_mismatches", "keep_mismatches")}
+        worst = max(r["out_err"] / r["out_tol"] for r in layers)
+        log(f"{cfg.name}: MoE layers against the host routing and a float32 FFN per "
+            f"expert: {json.dumps(totals)}; largest output error "
+            f"{worst:.3f} of its tolerance")
+        if (totals["routing_mismatches"] or totals["pos_mismatches"]
+                or totals["keep_mismatches"] or worst > 1.0):
+            fail(f"{cfg.name}: MoE layer check failed: {totals}, worst {worst}")
+        ref = runs["f32 plain"][0]
+        kern, plain = runs["kernel"][0], runs["bf16 plain"][0]
+        if not bool(torch.isfinite(kern).all()):
+            fail(f"{cfg.name}: forward logits are not finite")
+        logit = {"mean_err_kernel": (kern - ref).abs().mean().item(),
+                 "mean_err_bf16_plain": (plain - ref).abs().mean().item(),
+                 "max_err_kernel": (kern - ref).abs().max().item(),
+                 "max_err_bf16_plain": (plain - ref).abs().max().item(),
+                 "max_err_kernel_vs_plain": (kern - plain).abs().max().item(),
+                 "last_max_err_kernel": (kern[:, -1] - ref[:, -1]).abs().max().item(),
+                 "last_max_err_bf16_plain": (plain[:, -1] - ref[:, -1]).abs().max().item(),
+                 "routed_differently_kernel_vs_plain": routing_changes(
+                     runs["kernel"][1], runs["bf16 plain"][1]),
+                 "routed_differently_bf16_vs_f32": routing_changes(
+                     runs["kernel"][1], runs["f32 plain"][1])}
+        log(f"{cfg.name} forward logits over all {BATCH} x {PROMPT} positions: "
+            f"{json.dumps(logit)}")
+        if not logit["mean_err_kernel"] <= MOE_LOGIT_RATIO * logit["mean_err_bf16_plain"]:
+            fail(f"{cfg.name}: kernel path's mean logit error {logit['mean_err_kernel']} "
+                 f"> {MOE_LOGIT_RATIO} x the bf16 plain run's "
+                 f"{logit['mean_err_bf16_plain']}")
+        del runs, kern, plain, ref
+        torch.cuda.empty_cache()
+        out["static_tokens_check"] = tokens_check(
+            cfg, engine.params, list(run.prompts), list(run.tokens))
+        log(f"{cfg.name} static batch: all {out['static_tokens_check']['positions']} "
+            "tokens within tolerance of a float32 run")
+        out.update(moe_layers=totals, moe_worst_out_err_over_tol=worst,
+                   moe_layer_rows=layers, logits=logit)
+        out["serve_loop"] = serve_mixed(cfg, engine, per_prefill,
+                                        {"rmsnorm": MOE_RMS})
+        del run, engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def encdec_path() -> dict:
+    """Phase 8: seamless-m4t-large-v2 at its published widths."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.serve.scheduler import stub_frames
+
+    cfg = get_config(ENCDEC_ARCH)
+    root, ws, app, host, setup = fresh_workspace(cfg)
+    try:
+        per_prefill = {"flash_attention": ENCDEC_FLASH, "non_causal": ENCDEC_CROSS}
+        want = {"flash_attention": ENCDEC_FLASH, "rmsnorm": 0, "paged_reloc_copy": 1,
+                "non_causal": ENCDEC_CROSS,
+                "flash_routes": {"wgmma": ENCDEC_FLASH, "simt": 0}}
+        run, out = static_batch(cfg, ws, host, want)
+        del host
+        out.update(setup=setup, n_params=models.n_params(cfg))
+        engine = run.engine
+        batch = {"tokens": torch.as_tensor(run.prompts, device="cuda"),
+                 "frames": stub_frames(cfg, BATCH, PROMPT, "cuda")}
+        out.update(prefill_logits_check(cfg, engine.params, batch))
+        frames = batch["frames"]
+        out["static_tokens_check"] = tokens_check(
+            cfg, engine.params, list(run.prompts), list(run.tokens),
+            frames=[frames[b:b + 1] for b in range(BATCH)])
+        log(f"{cfg.name} static batch: all {out['static_tokens_check']['positions']} "
+            "tokens within tolerance of a float32 run")
+        del batch, frames
+        out["serve_loop"] = serve_mixed(cfg, engine, per_prefill, {})
+        del run, engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run, e.g. 2,7 (development: "
+                         "the build always runs, and the result lines are printed "
+                         "only by a run of every phase)")
+    args = ap.parse_args()
+    only = {int(p) for p in args.phases.split(",") if p}
     if not (SRC / "repro_torch").is_dir():
         fail(f"no {SRC / 'repro_torch'}: run chip_smoke.py from a checkout")
     sys.path.insert(0, str(SRC))
@@ -1329,41 +1849,78 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import shm_arena
 
+    def phase(n: int) -> bool:
+        return not only or n in only
+
     resolve_device("cuda")                   # TF32 off for f32 products
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     cfg = get_config(ARCH)
-    detail = {"card": card, "build": build_kernels()}
-    root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
-    ws = None
-    try:
-        ws, app, host, detail["setup"] = publish(cfg, root)
-        kernels = [check_flash(cfg), check_rmsnorm(cfg), check_paged(host.table)]
-        detail["main_path"] = main_path(cfg, ws, host)
-        del host
-        detail["small_input"] = small_input()
-        detail["serve_epoch"] = serve_epoch(cfg, ws, app)
-        detail["traffic"] = traffic_plane(cfg, ws, app)
-    finally:
-        if ws is not None:
-            shm_arena.unlink_root_segments(ws.registry)
-        shutil.rmtree(root, ignore_errors=True)
+    detail = {"card": card, "build": build_kernels(), "phase_s": {}}
+    kernels = []
+
+    def timed(n: int, key: str, fn, *args):
+        t = time.perf_counter()
+        detail[key] = fn(*args)
+        detail["phase_s"][n] = detail["phase_s"].get(n, 0.0) + time.perf_counter() - t
+        log(f"phase {n} ({key}): {time.perf_counter() - t:.1f} s")
+
+    if any(phase(n) for n in range(2, 7)):
+        root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
+        ws = None
+        try:
+            ws, app, host, detail["setup"] = publish(cfg, root)
+            if phase(2):
+                t = time.perf_counter()
+                kernels = [check_flash(cfg), check_rmsnorm(cfg, get_config(MOE_ARCH)),
+                           check_paged(host.table)]
+                kernels[0]["_new_paths"] = check_flash_paths()
+                detail["phase_s"][2] = time.perf_counter() - t
+            if phase(3):
+                timed(3, "main_path", main_path, cfg, ws, host)
+            del host
+            if phase(4):
+                for arch in (ARCH, MOE_ARCH, "qwen2-moe-a2.7b", ENCDEC_ARCH):
+                    timed(4, f"small_input {arch}", small_input, arch)
+            if phase(5):
+                timed(5, "serve_epoch", serve_epoch, cfg, ws, app)
+            if phase(6):
+                timed(6, "traffic", traffic_plane, cfg, ws, app)
+        finally:
+            if ws is not None:
+                shm_arena.unlink_root_segments(ws.registry)
+            shutil.rmtree(root, ignore_errors=True)
+    if phase(7):
+        timed(7, "moe", moe_path)
+    if phase(8):
+        timed(8, "encdec", encdec_path)
+    detail["empty_profiles"] = EMPTY_PROFILES
+    detail["total_s"] = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    if only:
+        detail["kernels"] = kernels
+        (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
+        log(f"phases {sorted(only)} passed in {detail['total_s']:.1f} s (a partial run "
+            "prints no result)")
+        return
     paths = {"main_path": detail["main_path"]["launches"],
              "serve_epoch": detail["serve_epoch"]["launches"],
-             "traffic": detail["traffic"]["drive_a"]["launches"]}
+             "traffic": detail["traffic"]["drive_a"]["launches"],
+             MOE_ARCH: detail["moe"]["launches"],
+             f"{MOE_ARCH} serve_loop": detail["moe"]["serve_loop"]["launches"],
+             ENCDEC_ARCH: detail["encdec"]["launches"],
+             f"{ENCDEC_ARCH} serve_loop": detail["encdec"]["serve_loop"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
+    kernels[0]["non_causal_by_path"] = {p: c.get("non_causal", 0) for p, c in paths.items()}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             fail(f"{k['name']} was not launched on the main path")
     detail["kernels"] = kernels
-    detail["empty_profiles"] = EMPTY_PROFILES
     log(f"device_ms: {len(EMPTY_PROFILES)} profiles recorded no device time "
         "and were taken again")
-    detail["total_s"] = time.perf_counter() - t0
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     # device_ms: the profiler's device time a launch, beside "ms" (CUDA
     # events over back-to-back calls, the host's rate where it is slower);
@@ -1371,7 +1928,7 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    log(f"done in {detail['total_s']:.1f} s")
+    log(f"done in {detail['total_s']:.1f} s; phases {json.dumps(detail['phase_s'])}")
     print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,6 @@ def zero_launch_counts() -> None:
     from .paged_reloc_copy import ops as prc
     from .rmsnorm import ops as rn
 
-    fa.launches = rn.launches = prc.launches = 0
+    fa.launches = fa.launches_non_causal = rn.launches = prc.launches = 0
     for route in fa.launches_by_route:
         fa.launches_by_route[route] = 0

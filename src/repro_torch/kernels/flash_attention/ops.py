@@ -21,7 +21,8 @@ with TMA, so ``tma_strides`` also checks that each base pointer is 16-byte
 aligned and each stride a multiple of 16 bytes, and raises otherwise.
 
 ``launches`` counts kernel launches (plain-version calls do not count);
-``launches_by_route`` counts them per route.
+``launches_by_route`` counts them per route, and ``launches_non_causal``
+those with ``causal=False`` (an encoder-decoder's cross-attention).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 launches_by_route = {"wgmma": 0, "simt": 0}
+launches_non_causal = 0
 _lib = None          # the ctypes library, loaded at first launch
 
 
@@ -143,7 +145,7 @@ def _check(q, k, v):
 
 
 def _launch(q, k, v, causal, window, q_offset):
-    global launches
+    global launches, launches_non_causal
     kind, strides = _check(q, k, v)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -166,6 +168,8 @@ def _launch(q, k, v, causal, window, q_offset):
         )
     launches += 1
     launches_by_route[kind] += 1
+    if not causal:
+        launches_non_causal += 1
     return o
 
 

@@ -1,9 +1,10 @@
-from . import api, common, specs, transformer
+from . import api, common, moe, specs, transformer
 from .api import (
     decode_step,
     forward,
     init_params,
     manifest_refs,
+    n_active_params,
     n_params,
     param_specs,
     prefill,
@@ -12,12 +13,14 @@ from .api import (
 __all__ = [
     "api",
     "common",
+    "moe",
     "specs",
     "transformer",
     "decode_step",
     "forward",
     "init_params",
     "manifest_refs",
+    "n_active_params",
     "n_params",
     "param_specs",
     "prefill",

@@ -1,4 +1,5 @@
-"""Uniform model API, dispatched on config family (dense only so far).
+"""Uniform model API, dispatched on config family (the transformer
+families: dense, MoE, encoder-decoder, VLM; mamba2 and the hybrid raise).
 
     param_specs(cfg)                  -> {name: ParamSpec}   (symbol manifest)
     init_params(cfg, seed, device)    -> {name: tensor}
@@ -9,6 +10,8 @@
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from repro_torch.core import SymbolRef
 
@@ -80,3 +83,14 @@ def manifest_refs(cfg, *, fragment: bool = False) -> list[SymbolRef]:
 
 def n_params(cfg) -> int:
     return param_count(param_specs(cfg))
+
+
+def n_active_params(cfg) -> int:
+    """Active parameters per token (MoE discounts inactive experts)."""
+    total = 0
+    for name, s in param_specs(cfg).items():
+        n = int(np.prod(s.shape))
+        if "/experts/" in name and cfg.num_experts:
+            n = n * cfg.experts_per_token // cfg.num_experts
+        total += n
+    return total

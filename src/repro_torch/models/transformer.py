@@ -1,12 +1,13 @@
-"""Dense transformer — the port of the reference's ``models/transformer.py``
-for the dense family (GQA / MQA, QKV bias, qk-norm, sliding window with a
-local:global pattern, tied embeddings, LayerNorm + bias + gelu).
+"""Transformer zoo — the port of the reference's ``models/transformer.py``:
+dense (GQA / MQA, QKV bias, qk-norm, sliding window with a local:global
+pattern, tied embeddings, LayerNorm + bias + gelu), MoE (``models/moe.py``)
+and encoder-decoder (an encoder over stubbed frame embeddings, then a
+decoder with cross-attention), one implementation, flag-driven.
 
 Params are a flat ``{symbol_name: tensor}`` dict (the stable-linking symbol
-space); stacked-layer params carry a leading L axis and the stack runs as a
-plain Python loop over layers. ``param_specs`` covers every family the
-reference declares (it is pure data and equals the reference's exactly);
-the MoE and encoder-decoder forward paths raise ``NotImplementedError``.
+space); stacked-layer params carry a leading L axis and each stack runs as
+a plain Python loop over layers. ``param_specs`` equals the reference's
+exactly.
 
 Departures from the reference that do not change results:
 
@@ -17,13 +18,19 @@ Departures from the reference that do not change results:
 * the cache's ``pos`` is a Python int, so decode never waits on the device
   to read it — or a tuple of ints, one per batch row: the batched form of
   the reference's slot scheduler, which vmaps a B=1 ``decode_step`` over
-  slots that each carry their own scalar ``pos``.
+  slots that each carry their own scalar ``pos``;
+* an encoder-decoder cache may carry ``xpos``, the last valid row of each
+  batch row's cross K/V (an int or a tuple of ints): the scheduler pads
+  every slot's ``xk``/``xv`` to one length and masks past ``xpos``, where
+  the reference sizes them to the prompt (ROADMAP Queue C). Without it,
+  every row of ``xk`` is valid, as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import moe
 from .common import (
     apply_rope,
     attention,
@@ -35,9 +42,6 @@ from .common import (
     rope_angles,
 )
 from .specs import ParamSpec, torch_dtype
-
-_MOE_TODO = "MoE layers are not ported yet (ROADMAP Queue A item 8)"
-_ENCDEC_TODO = "encoder-decoder models are not ported yet (ROADMAP Queue A item 9)"
 
 # --------------------------------------------------------------------------
 # Parameter specs (symbol manifest)
@@ -156,13 +160,6 @@ def param_specs(cfg) -> dict[str, ParamSpec]:
 # --------------------------------------------------------------------------
 
 
-def _check_dense(cfg):
-    if cfg.is_moe:
-        raise NotImplementedError(_MOE_TODO)
-    if cfg.is_encdec:
-        raise NotImplementedError(_ENCDEC_TODO)
-
-
 def _norm(p, name, x, cfg):
     if cfg.use_bias:
         return layer_norm(x, p[f"{name}/scale"], p[f"{name}/bias"], cfg.norm_eps)
@@ -201,7 +198,20 @@ def _self_attention(cfg, p, x, sin, cos, *, window, impl):
     return o, k, v
 
 
-def _mlp(cfg, p, x):
+def _mlp_or_moe(cfg, p, x):
+    """Returns (out, aux loss); the aux loss is None for a dense MLP."""
+    if cfg.is_moe:
+        out, aux = moe.moe_block(
+            x, p["router/w"], p["experts/w_gate"], p["experts/w_up"],
+            p["experts/w_down"], k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor,
+        )
+        if cfg.num_shared_experts:
+            out = out + moe.shared_expert(
+                x, p["shared/w_gate"], p["shared/w_up"], p["shared/w_down"],
+                p["shared/gate"],
+            )
+        return out, aux
     return mlp(
         x,
         p.get("mlp/w_gate"),
@@ -210,15 +220,38 @@ def _mlp(cfg, p, x):
         act=cfg.act,
         b_up=p.get("mlp/b_up"),
         b_down=p.get("mlp/b_down"),
-    )
+    ), None
 
 
-def _block(cfg, p, x, sin, cos, *, window, impl):
+def _cross_kv(cfg, p, enc_out):
+    """The decoder layer's cross-attention keys and values over the
+    encoder's output: (B, S_enc, KV, hd) each; no RoPE, norm or bias."""
+    B, S_enc, _ = enc_out.shape
+    shape = (B, S_enc, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (enc_out @ p["xattn/wk"]).reshape(shape), (enc_out @ p["xattn/wv"]).reshape(shape)
+
+
+def _cross_query(cfg, p, x):
+    h = _norm(p, "xattn_norm", x, cfg)
+    B, S, _ = h.shape
+    return (h @ p["xattn/wq"]).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def _block(cfg, p, x, sin, cos, *, window, impl, enc_out=None):
+    """One layer -> (x, aux or None, kv): kv is (k, v), and for a decoder
+    layer of an encoder-decoder (``enc_out`` given) (k, v, xk, xv)."""
     h = _norm(p, "attn_norm", x, cfg)
     o, k, v = _self_attention(cfg, p, h, sin, cos, window=window, impl=impl)
     x = x + o
+    kv = (k, v)
+    if enc_out is not None:           # cross attention, never causal
+        xk, xv = _cross_kv(cfg, p, enc_out)
+        o = attention(_cross_query(cfg, p, x), xk, xv, causal=False, impl=impl)
+        x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["xattn/wo"]
+        kv += (xk, xv)
     h = _norm(p, "mlp_norm", x, cfg)
-    return x + _mlp(cfg, p, h), k, v
+    m, aux = _mlp_or_moe(cfg, p, h)
+    return x + m, aux, kv
 
 
 def _stacked_params(params: dict, prefix: str) -> dict:
@@ -236,18 +269,27 @@ def _layer_windows(cfg) -> list[int]:
             for i in range(L)]
 
 
-def run_stack(cfg, params, prefix, x, sin, cos, *, impl, on_kv=None):
-    """Run the layer stack as a plain loop, layer i with its own window.
+def run_stack(cfg, params, prefix, x, sin, cos, *, impl, enc_out=None,
+              on_kv=None):
+    """Run a layer stack as a plain loop, layer i with its own window (the
+    encoder's ``enc`` stack: full causal attention in every layer).
+    Returns (x, summed aux loss, a float32 scalar tensor).
 
-    ``on_kv(i, k, v)``, when given, receives each layer's keys and values
-    (prefill writes them into the cache)."""
+    ``on_kv(i, *kv)``, when given, receives each layer's keys and values
+    (and a decoder layer's cross keys and values); prefill writes them into
+    the cache."""
     stacked = _stacked_params(params, prefix)
-    for i, window in enumerate(_layer_windows(cfg)):
+    windows = [0] * cfg.encoder_layers if prefix == "enc" else _layer_windows(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, window in enumerate(windows):
         p_i = {n: a[i] for n, a in stacked.items()}
-        x, k, v = _block(cfg, p_i, x, sin, cos, window=window, impl=impl)
+        x, aux_i, kv = _block(cfg, p_i, x, sin, cos, window=window, impl=impl,
+                              enc_out=enc_out)
+        if aux_i is not None:
+            aux = aux + aux_i
         if on_kv is not None:
-            on_kv(i, k, v)
-    return x
+            on_kv(i, *kv)
+    return x, aux
 
 
 # --------------------------------------------------------------------------
@@ -266,48 +308,76 @@ def _embed(params, tokens):
     return params["embed/tokens"][tokens.long()]
 
 
+def _encode(cfg, params, frames, impl):
+    """Encoder over precomputed frame embeddings (the modality stub):
+    ``frontend/proj``, the ``enc`` stack, ``enc_final_norm``. Its
+    self-attention is causal, as the reference's."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    if "frontend/proj" in params:
+        x = x @ params["frontend/proj"]
+    sin, cos = rope_angles(torch.arange(x.shape[1], device=x.device),
+                           cfg.resolved_head_dim, cfg.rope_theta)
+    x, _ = run_stack(cfg, params, "enc", x, sin, cos, impl=impl)
+    return _norm(params, "enc_final_norm", x, cfg)
+
+
+def _stack_prefix(cfg) -> str:
+    return "dec" if cfg.is_encdec else "blocks"
+
+
 def forward(cfg, params, batch, *, impl: str = "kernel"):
-    """Full-sequence forward -> (logits (B, S, V), aux). Batch keys: tokens."""
-    _check_dense(cfg)
+    """Full-sequence forward -> (logits (B, S, V), aux loss). Batch keys:
+    tokens (B, S), and frames (B, S_enc, d) for an encoder-decoder."""
     x = _embed(params, batch["tokens"])
     S = x.shape[1]
     sin, cos = rope_angles(torch.arange(S, device=x.device), cfg.resolved_head_dim,
                            cfg.rope_theta)
-    x = run_stack(cfg, params, "blocks", x, sin, cos, impl=impl)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out = _encode(cfg, params, batch["frames"], impl) if cfg.is_encdec else None
+    x, aux = run_stack(cfg, params, _stack_prefix(cfg), x, sin, cos, impl=impl,
+                       enc_out=enc_out)
     return logits_fn(cfg, params, x), aux
 
 
-def init_cache(cfg, batch: int, seq_len: int, device):
-    """Zero cache: ``k``/``v`` of shape (L, B, seq_len, KV, hd), ``pos`` 0."""
-    shape = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+def init_cache(cfg, batch: int, seq_len: int, device, *, cross_len=None):
+    """Zero cache: ``k``/``v`` of shape (L, B, seq_len, KV, hd), ``pos`` 0;
+    an encoder-decoder's also holds cross ``xk``/``xv`` of
+    ``cross_len or seq_len`` rows."""
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = torch_dtype(cfg.dtype)
-    return {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": 0,
-    }
+    cache = {n: torch.zeros((L, batch, seq_len, KV, hd), dtype=dt, device=device)
+             for n in ("k", "v")}
+    if cfg.is_encdec:
+        for n in ("xk", "xv"):
+            cache[n] = torch.zeros((L, batch, cross_len or seq_len, KV, hd),
+                                   dtype=dt, device=device)
+    cache["pos"] = 0
+    return cache
 
 
 def prefill(cfg, params, batch, *, impl: str = "kernel", cache_len=None):
     """Process a prompt; returns (last-position logits (B,1,V), cache).
 
     The cache holds ``k``/``v`` of shape (L, B, cache_len, KV, hd), zero
-    past the prompt, and ``pos = S - 1``."""
-    _check_dense(cfg)
+    past the prompt, and ``pos = S - 1``; an encoder-decoder's also holds
+    the cross keys and values ``xk``/``xv`` (L, B, S_enc, KV, hd), computed
+    once here and read by every decode step."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    cache = init_cache(cfg, B, cache_len or S, tokens.device)
     x = _embed(params, tokens)
     sin, cos = rope_angles(torch.arange(S, device=x.device), cfg.resolved_head_dim,
                            cfg.rope_theta)
+    enc_out = _encode(cfg, params, batch["frames"], impl) if cfg.is_encdec else None
+    cache = init_cache(cfg, B, cache_len or S, tokens.device,
+                       cross_len=enc_out.shape[1] if cfg.is_encdec else None)
 
-    def on_kv(i, k, v):
+    def on_kv(i, k, v, *xkv):
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
+        if xkv:
+            cache["xk"][i], cache["xv"][i] = xkv
 
-    x = run_stack(cfg, params, "blocks", x, sin, cos, impl=impl, on_kv=on_kv)
+    x, _ = run_stack(cfg, params, _stack_prefix(cfg), x, sin, cos, impl=impl,
+                     enc_out=enc_out, on_kv=on_kv)
     cache["pos"] = S - 1
     return logits_fn(cfg, params, x[:, -1:, :]), cache
 
@@ -335,12 +405,13 @@ def decode_step(cfg, params, cache, tokens):
     to the ``window`` entries ending at ``pos`` when ``window < S``.
     ``cache["pos"]`` is an int, or a tuple of B ints: then every row uses
     its own position (RoPE phase, ring slot, window, mask), exactly as a
-    B=1 call on that row would."""
-    _check_dense(cfg)
+    B=1 call on that row would. An encoder-decoder's layers then attend
+    to the cross ``xk``/``xv`` up to ``cache["xpos"]`` (an int, or B ints),
+    or to all of it when the cache has no ``xpos``."""
     B = tokens.shape[0]
     hd = cfg.resolved_head_dim
     x = _embed(params, tokens)
-    stacked = _stacked_params(params, "blocks")
+    stacked = _stacked_params(params, _stack_prefix(cfg))
     S = cache["k"].shape[2]
     per_row = isinstance(cache["pos"], (tuple, list))
     if per_row:
@@ -354,6 +425,10 @@ def decode_step(cfg, params, cache, tokens):
         pos = cache["pos"] + 1  # position being written
         sin, cos = rope_angles(host_ints([pos], x.device), hd, cfg.rope_theta)
         slot = pos % S
+    if cfg.is_encdec:
+        xpos = cache.get("xpos", cache["xk"].shape[2] - 1)
+        if isinstance(xpos, (tuple, list)):
+            xpos = host_ints(xpos, x.device)
 
     for i, window in enumerate(_layer_windows(cfg)):
         p = {n: a[i] for n, a in stacked.items()}
@@ -384,8 +459,12 @@ def decode_step(cfg, params, cache, tokens):
         if cfg.use_bias:
             o = o + p["attn/bo"]
         x = x + o
+        if cfg.is_encdec:
+            o = decode_attention(_cross_query(cfg, p, x), cache["xk"][i],
+                                 cache["xv"][i], xpos)
+            x = x + o.reshape(B, 1, -1) @ p["xattn/wo"]
         h = _norm(p, "mlp_norm", x, cfg)
-        x = x + _mlp(cfg, p, h)
+        x = x + _mlp_or_moe(cfg, p, h)[0]
 
     logits = logits_fn(cfg, params, x)
     new_cache = dict(cache)

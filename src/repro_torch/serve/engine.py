@@ -37,7 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.link import strategy_takes_device
 
 from . import faults
-from .scheduler import check_token_ids
+from .scheduler import check_token_ids, stub_frames
 
 
 @dataclass
@@ -315,15 +315,19 @@ class ServeEngine:
         """prompts: (B, S) int -> ((B, max_new_tokens) greedy continuations,
         ServeStats). Tokens stay on the device until the last step. A
         token id outside the vocabulary raises ``ValueError`` before any
-        launch."""
+        launch. An encoder-decoder encodes the stubbed frames
+        (``scheduler.stub_frames``), one per prompt position."""
         cfg = self.cfg
         check_token_ids(prompts, cfg.vocab_size, "prompts")
         stats = ServeStats()
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
+        batch = {"tokens": tokens}
+        if cfg.is_encdec:
+            batch["frames"] = stub_frames(cfg, *tokens.shape, self.device)
         self._sync()
         t0 = time.perf_counter()
         logits, cache = models.prefill(
-            cfg, self.params, {"tokens": tokens}, impl=self.impl,
+            cfg, self.params, batch, impl=self.impl,
             cache_len=self.cache_len or None,
         )
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]

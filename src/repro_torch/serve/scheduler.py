@@ -9,10 +9,14 @@ The slot state is ``(cache, toks, out_buf, steps, keys)`` as batched
 tensors on the engine's device: ``cache["k"]``/``["v"]`` are
 ``(L, slots, S, KV, hd)`` with one row per slot, and ``cache["pos"]`` is a
 tuple of per-slot positions kept on the host (the host issued every step,
-so it knows them). The reference vmaps a B=1 ``decode_step`` over slots;
-``torch.func.vmap`` cannot pass through the ctypes-bound kernels, so
-one batched ``decode_step`` with per-row positions advances every slot
-instead (``models/transformer.py``). Each step decodes EVERY slot and masks
+so it knows them). An encoder-decoder's slots also hold the cross keys and
+values ``cache["xk"]``/``["xv"]``, padded to the same ``S`` rows, with
+``cache["xpos"]`` the last valid row of each (its prompt's length - 1):
+the reference sizes its slot template to the first admission's prompt and
+cannot serve mixed prompt lengths (ROADMAP Queue C). The reference vmaps a
+B=1 ``decode_step`` over slots; ``torch.func.vmap`` cannot pass through the
+ctypes-bound kernels, so one batched ``decode_step`` with per-row
+positions advances every slot instead (``models/transformer.py``). Each step decodes EVERY slot and masks
 the inactive ones, as the reference's ``jnp.where(active, nxt, 0)`` does,
 so the kernel launch counts do not depend on occupancy. Admission prefills
 B=1 with the engine's ``impl`` and writes the row into its slot in place.
@@ -43,6 +47,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.core.errors import EpochAdoptError
+from repro_torch.device import torch_dtype
 from repro_torch.models.common import host_ints
 
 from . import faults
@@ -246,14 +251,16 @@ def check_token_ids(tokens, vocab_size: int, what: str = "prompt") -> None:
         )
 
 
+def stub_frames(cfg, batch: int, seq: int, device) -> torch.Tensor:
+    """The encoder-decoder's modality stub, as the reference's engine and
+    scheduler draw it: ``default_rng(0).standard_normal((batch, seq,
+    d_model))`` cast to the config's dtype (numpy, so that both packages see
+    the same frames)."""
+    frames = np.random.default_rng(0).standard_normal((batch, seq, cfg.d_model))
+    return torch.from_numpy(frames).to(device=device, dtype=torch_dtype(cfg.dtype))
+
+
 def _check_family(cfg) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE slot decode is not ported yet (ROADMAP Queue A item 8)")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder slot decode is not ported yet "
-            "(ROADMAP Queue A item 9)")
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: SSM cache slots are not ported yet (ROADMAP Queue A item 10)")
@@ -319,11 +326,11 @@ class SlotScheduler:
         dev = self.engine.device
         k = row_cache["k"]
         shape = (k.shape[0], self.slots) + tuple(k.shape[2:])
-        cache = {
-            "k": torch.zeros(shape, dtype=k.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=k.dtype, device=dev),
-            "pos": (0,) * self.slots,
-        }
+        names = ("k", "v", "xk", "xv") if "xk" in row_cache else ("k", "v")
+        cache = {n: torch.zeros(shape, dtype=k.dtype, device=dev) for n in names}
+        cache["pos"] = (0,) * self.slots
+        if "xk" in row_cache:
+            cache["xpos"] = (0,) * self.slots
         self._state = (
             cache,
             torch.zeros((self.slots, 1), dtype=torch.int32, device=dev),
@@ -337,17 +344,26 @@ class SlotScheduler:
     def admit(self, req: Request, now: float) -> int:
         """Prefill ``req`` (B=1, the engine's ``impl``) and write its cache
         row into a free slot. Returns the slot index. A prompt holding a
-        token id outside the vocabulary raises ``ValueError`` first."""
+        token id outside the vocabulary, or longer than the engine's
+        ``cache_len``, raises ``ValueError`` first."""
         free = self.free_slots
         if not free:
             raise RuntimeError("admit called with no free slot")
         idx = free[0]
         eng = self.engine
         check_token_ids(req.prompt, eng.cfg.vocab_size, f"request {req.rid}")
+        n = len(req.prompt)
+        if eng.cache_len and n > eng.cache_len:
+            raise ValueError(
+                f"request {req.rid}: a prompt of {n} tokens does not fit the "
+                f"engine's cache_len of {eng.cache_len}")
         prompt = host_ints(np.asarray(req.prompt).tolist(), eng.device)
+        batch = {"tokens": prompt.to(torch.int32)[None]}
+        if eng.cfg.is_encdec:
+            batch["frames"] = stub_frames(eng.cfg, 1, n, eng.device)
         logits, row_cache = models.prefill(
-            eng.cfg, eng.params, {"tokens": prompt.to(torch.int32)[None]},
-            impl=eng.impl, cache_len=eng.cache_len or None,
+            eng.cfg, eng.params, batch, impl=eng.impl,
+            cache_len=eng.cache_len or None,
         )
         row_key = request_key(self.sampling_seed, req.rid)
         key = torch.full((1,), row_key, dtype=torch.int64, device=eng.device)
@@ -368,6 +384,14 @@ class SlotScheduler:
         pos = list(cache["pos"])
         pos[idx] = int(row_cache["pos"])
         cache["pos"] = tuple(pos)
+        if "xk" in cache:             # cross K/V padded with zeros to S rows
+            s_enc = row_cache["xk"].shape[2]
+            for name in ("xk", "xv"):
+                cache[name][:, idx, :s_enc] = row_cache[name][:, 0]
+                cache[name][:, idx, s_enc:] = 0
+            xpos = list(cache["xpos"])
+            xpos[idx] = s_enc - 1
+            cache["xpos"] = tuple(xpos)
         out_buf[idx] = 0
         out_buf[idx, 0] = tok0[0]
         steps[idx] = 1

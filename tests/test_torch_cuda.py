@@ -273,3 +273,70 @@ def test_run_traffic_on_card_matches_cpu_with_exact_launches(cuda, tmp_path):
             "paged_reloc_copy": 1,
             "flash_routes": {"wgmma": 0, "simt": layers * adm},
         }, st
+
+
+# ------------------------------------- MoE and encoder-decoder on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b", "seamless-m4t-large-v2"])
+def test_moe_and_encdec_smoke_prefill_and_decode_match_cpu_on_card(cuda, arch):
+    """The smoke configs' prefill and greedy decode on the card (kernels)
+    equal the CPU's (plain versions, which the CPU tests hold against the
+    JAX package): logits within 1e-4 at every step, the same tokens."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.serve.scheduler import stub_frames
+
+    cfg = get_config(arch, smoke=True)
+    cpu = models.init_params(cfg, 0, "cpu")
+    params = {"cpu": cpu, "cuda": {n: t.to(cuda) for n, t in cpu.items()}}
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)
+    logits, seqs = {}, {}
+    with torch.inference_mode():
+        for dev, p in params.items():
+            batch = {"tokens": torch.as_tensor(toks, device=dev)}
+            if cfg.is_encdec:
+                batch["frames"] = stub_frames(cfg, 2, 24, dev)
+            lg, cache = models.prefill(cfg, p, batch, cache_len=32)
+            steps, tok = [lg.float().cpu()], lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            seq = [tok.cpu()]
+            for _ in range(6):
+                lg, cache = models.decode_step(cfg, p, cache, tok)
+                steps.append(lg.float().cpu())
+                tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+                seq.append(tok.cpu())
+            logits[dev], seqs[dev] = steps, torch.cat(seq, 1)
+    assert torch.equal(seqs["cpu"], seqs["cuda"])
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_moe_block_bf16_ties_keep_the_cpu_order_on_card(cuda):
+    """bf16 router logits that tie exactly (small integers, duplicated
+    router columns): the card routes to the experts, in the order, that the
+    CPU does (the lower expert first among equal probabilities), and its
+    output matches the CPU's within bf16 rounding."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(3)
+    d, e, ff, k = 64, 16, 32, 4
+    x = rng.integers(-2, 3, (2, 48, d)).astype(np.float32)
+    router = rng.integers(-1, 2, (d, e)).astype(np.float32)
+    router[:, e // 2:] = router[:, :e // 2]
+    w = [rng.standard_normal(s).astype(np.float32) * s[1] ** -0.5
+         for s in ((e, d, ff), (e, d, ff), (e, ff, d))]
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in [x, router] + w]
+    r_cpu = moe.route(args[0], args[1], k=k)
+    probs = r_cpu.probs.numpy()
+    top = np.take_along_axis(probs, r_cpu.top_e.numpy(), -1)
+    assert (np.diff(top, axis=-1) == 0).any()         # the picks do tie
+    np.testing.assert_array_equal(
+        r_cpu.top_e.numpy(), np.argsort(-probs, axis=-1, kind="stable")[..., :k])
+    on_card = [a.to(cuda) for a in args]
+    r_card = moe.route(on_card[0], on_card[1], k=k)
+    assert torch.equal(r_card.top_e.cpu(), r_cpu.top_e)
+    assert torch.equal(r_card.keep.cpu(), r_cpu.keep)
+    want, _ = moe.moe_block(*args, k=k)
+    got, _ = moe.moe_block(*on_card, k=k)
+    scale = want.float().abs().max().item()
+    assert (got.float().cpu() - want.float()).abs().max().item() <= 2e-2 * scale
