@@ -16,15 +16,19 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
 2. kernels: hold each kernel against its plain PyTorch version on the card
    (flash attention: the reference's kernel sweep cases plus the serving
    shapes, f32 within 1e-4 on the CUDA-core route and bf16 within 2e-2, on
-   the wgmma route at hd >= 64; rmsnorm: the sweep cases plus the serving
-   shapes, f32 within 1e-5 and bf16 within 3e-2 + 2**-7 relative;
+   the wgmma route at hd >= 64; the sweep's shapes again at hd 224, a
+   windowed case and zamba2-7b's prefill shape (4, 1024, 32, 224), bf16 on
+   the wgmma route within 2e-2; rmsnorm: the sweep cases plus every served
+   family's shapes, f32 within 1e-5 and bf16 within 3e-2 + 2**-7 relative;
    paged_reloc_copy: the reference's cases and gemma3-1b's real page table
    over a 2.0 GB arena, exactly equal), and time kernel, plain version and
    one PyTorch library call; flash attention's simt route is timed at its
    own shapes (the smoke config's) and, as a yardstick, at the serving
    shapes through its C entry; rmsnorm and ``F.rms_norm`` are timed in
    turns (their calls' time is the host's), and their device times come
-   from the profiler;
+   from the profiler. Every timed call of flash attention and rmsnorm takes
+   the next of several copies of its inputs, totalling more than twice
+   the 50 MB L2, so no reading is of inputs left in L2 by the call before;
 3. main path: ``repro_torch.launch.serve.serve`` with that app: load with
    ``strategy="stable"``, which builds the arena on the card with one
    paged_reloc_copy launch (the params are views of it), prefill 4 prompts
@@ -36,7 +40,8 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    must be finite and, against a float32 plain-attention run on the card,
    no further off than 1.5x the bf16 plain-attention run;
 4. small input: the smoke configs of gemma3-1b, olmoe-1b-7b,
-   qwen2-moe-a2.7b and seamless-m4t-large-v2 on the card (kernels) and on
+   qwen2-moe-a2.7b, seamless-m4t-large-v2, mamba2-370m and zamba2-7b on
+   the card (kernels) and on
    the CPU (plain versions, which the CPU tests hold against the JAX
    reference) give the same logits within 1e-4 and the same greedy tokens;
    and the same ``serve_loop`` (float32, mixed prompt lengths, 2 slots)
@@ -97,7 +102,20 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    bf16 plain run's error of a float32 run, tokens checked; then
    ``serve_loop(max_batch=4)`` over 8 requests of mixed prompt lengths,
    which the reference's scheduler cannot serve: all complete, launches
-   exact, tokens checked.
+   exact, tokens checked;
+9. mamba2-370m at its published widths (48 layers, d 1024, d_inner 2048,
+   32 SSM heads of 64, state 128, chunk 128, tied output layer, bf16;
+   368,338,432 parameters) in a fresh Workspace: the static batch with 1
+   paged copy, 0 flash launches and 97 rmsnorm launches a prefill and a
+   decode step, byte-equal slots, prefill logits within 1.5x the bf16
+   plain run's error of a float32 run, tokens checked; then the
+   mixed-length ``serve_loop``;
+10. zamba2-7b at its published widths (81 mamba layers, d 3584, 112 SSM
+   heads, state 64; one shared attention block at 2*d = 7168 applied 14
+   times, 32 heads of hd 224, d_ff 14,336; vocab 32,000, bf16;
+   7,085,109,456 parameters, a 14.17 GB arena): as phase 9, with 14 flash
+   launches a prefill, all on the wgmma route at hd 224, and 191 rmsnorm
+   launches a prefill and a step.
 
 ``--phases`` runs only the listed phases (the build always runs) and prints
 no result lines: it is for development on the card.
@@ -162,6 +180,13 @@ MOE_ARCH, ENCDEC_ARCH = "olmoe-1b-7b", "seamless-m4t-large-v2"
 MOE_FLASH, MOE_RMS = 16, 65   # per prefill; rmsnorm 4 a layer + final norm
 ENCDEC_FLASH, ENCDEC_CROSS = 72, 24   # 24 encoder + 24 decoder self, 24 cross
 MIX_REQUESTS = 8              # serve_loop requests of SERVE_LENS tokens
+# the SSM and hybrid families at their published widths (phases 9 and 10):
+# launches a prefill (rmsnorm also a decode step): mamba2 2 norms a block
+# and the final norm; zamba2 also 14 shared-block invocations, each one
+# flash launch at hd 224 and 2 norms
+SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-7b"
+SSM_FLASH, SSM_RMS = 0, 97              # 2 x 48 + 1
+HYBRID_FLASH, HYBRID_RMS = 14, 191      # 2 x 81 + 2 x 14 + 1
 # an MoE layer's output against the per-expert float32 FFN, relative to the
 # layer's largest output value (bf16 rounds each product and sum at 2**-8)
 MOE_OUT_TOL = 0.03
@@ -178,6 +203,7 @@ T0 = time.perf_counter()      # the stamp of every log line counts from here
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 tensor flop/s
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6               # the H100's L2 (NVIDIA data sheet)
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
@@ -202,10 +228,41 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def rotating(fn, sets: list):
+    """A zero-argument call of ``fn`` that takes the next tuple of ``sets``
+    (``input_sets``) at each call, in turn. It also keeps each call's
+    result until its set comes round again, so the outputs rotate over as
+    many buffers: an output written into the block of the call before
+    would find its lines in L2 and never pay their write to memory."""
+    state = {"i": 0}
+    kept = [None] * len(sets)
+
+    def call():
+        i = state["i"] % len(sets)
+        state["i"] += 1
+        kept[i] = None
+        kept[i] = fn(*sets[i])
+        return kept[i]
+    return call
+
+
+def input_sets(make, set_bytes: int) -> list:
+    """Copies of one timed call's inputs, totalling more than twice the L2
+    (``L2_BYTES``): ``make(n)`` returns a tuple of tensors, each with a
+    leading axis of n copies, and set i is their i-th copies. A timed call
+    that takes them in turn (``rotating``) finds none of its inputs in L2
+    from the calls before it, as the model's caller does not."""
+    n = int(2 * L2_BYTES // set_bytes) + 1
+    made = make(n)
+    return [tuple(t[i] for t in made) for i in range(n)]
+
+
 def time_ms(fn, min_total_ms: float = 40.0) -> float:
     """Mean milliseconds per call on the card: CUDA events around a run of
     back-to-back calls after a warm-up (so a small kernel's time includes
-    its launch cost when the host is the slower side)."""
+    its launch cost when the host is the slower side). A kernel's timed
+    calls rotate their inputs over ``input_sets``, so L2 holds none of
+    them."""
     import torch
 
     for _ in range(3):
@@ -407,32 +464,32 @@ def check_flash(cfg) -> dict:
               "device_ms": 0.0, "library_device_ms": 0.0}
     for case in serving:
         B, Sq, Sk, H, KV, hd, causal, window = case
-        q = torch.randn((B, Sq, H, hd), generator=g, device=dev, dtype=torch.bfloat16)
-        k = torch.randn((B, Sk, KV, hd), generator=g, device=dev, dtype=torch.bfloat16)
-        v = torch.randn((B, Sk, KV, hd), generator=g, device=dev, dtype=torch.bfloat16)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sets = flash_sets(case, g)
         mask = _mask(Sq, Sk, window, dev)
 
-        def library():
+        def sdpa(q, k, v):
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             if window > 0:
                 return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                       enable_gqa=True)
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                   enable_gqa=True)
 
+        kernel = rotating(lambda q, k, v: fa.flash_attention(q, k, v, causal=True,
+                                                             window=window), sets)
+        library = rotating(sdpa, sets)
         row = {
             "case": case,
-            "route": fa.route(q.dtype, hd),
-            "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=window)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
-                                                                 window=window)),
+            "route": fa.route(torch.bfloat16, hd),
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(rotating(lambda q, k, v: fa.flash_attention_plain(
+                q, k, v, causal=True, window=window), sets)),
             "library_ms": time_ms(library),
-            "simt_ms": time_ms(simt_launcher(q, k, v, window)),
-            "device_ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                              window=window),
-                                   f"flash {case}"),
+            "simt_ms": time_ms(simt_launcher(*sets[0], window)),
+            "device_ms": device_ms(kernel, f"flash {case}"),
             "library_device_ms": device_ms(library, f"sdpa {case}"),
         }
+        del sets
         nbytes, flops = flash_work(case)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS)
         work.append((mix[window], nbytes, flops))
@@ -458,6 +515,17 @@ def check_flash(cfg) -> dict:
         "_per_shape": per_shape,
         "_simt_route": simt,
     }
+
+
+def flash_sets(case, g) -> list:
+    """bf16 (q, k, v) sets for a flash case, rotated by its timed calls."""
+    import torch
+
+    B, Sq, Sk, H, KV, hd = case[:6]
+    set_bytes = (B * Sq * H * hd + 2 * B * Sk * KV * hd) * 2
+    return input_sets(lambda n: tuple(
+        torch.randn((n, B, S, h, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+        for S, h in ((Sq, H), (Sk, KV), (Sk, KV))), set_bytes)
 
 
 def simt_launcher(q, k, v, window):
@@ -508,13 +576,17 @@ def simt_at_smoke_shapes() -> dict:
 
 
 def flash_path_cases() -> dict:
-    """The prefill shapes of phases 7 and 8 (B, Sq, Sk, H, KV, hd, causal,
-    window): olmoe at hd 128, seamless's self-attention at hd 64 and its
-    cross-attention, non-causal, over the encoder's 1024 positions."""
+    """The prefill shapes of phases 7, 8 and 10 (B, Sq, Sk, H, KV, hd,
+    causal, window): olmoe at hd 128, seamless's self-attention at hd 64
+    and its cross-attention, non-causal, over the encoder's 1024 positions,
+    and zamba2's shared block at hd 224 (2 * d / heads)."""
     from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
 
-    moe, ed = get_config(MOE_ARCH), get_config(ENCDEC_ARCH)
+    moe, ed, hy = get_config(MOE_ARCH), get_config(ENCDEC_ARCH), get_config(HYBRID_ARCH)
     return {
+        f"{HYBRID_ARCH} shared": (BATCH, PROMPT, PROMPT, hy.num_heads, hy.num_kv_heads,
+                                  hybrid._hd(hy), True, 0),
         f"{MOE_ARCH} self": (BATCH, PROMPT, PROMPT, moe.num_heads, moe.num_kv_heads,
                              moe.resolved_head_dim, True, 0),
         f"{ENCDEC_ARCH} self": (BATCH, PROMPT, PROMPT, ed.num_heads, ed.num_kv_heads,
@@ -522,6 +594,41 @@ def flash_path_cases() -> dict:
         f"{ENCDEC_ARCH} cross": (BATCH, PROMPT, PROMPT, ed.num_heads, ed.num_kv_heads,
                                  ed.resolved_head_dim, False, 0),
     }
+
+
+def check_flash_hd224() -> list[dict]:
+    """The wgmma route at hd 224 (on the hd-256 tile) against the plain
+    version, bf16 within 2e-2: the reference's sweep shapes at hd 224 and
+    causal attention with a window."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [c[:5] + (224,) + c[6:] for c in FA_CASES] + [
+        (2, 1024, 1024, 8, 8, 224, True, 512)]
+    out = []
+    for case in cases:
+        B, Sq, Sk, H, KV, hd, causal, window = case
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device="cuda",
+                               dtype=torch.bfloat16)
+                   for S, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+        if fa.route(q.dtype, hd) != "wgmma":
+            fail(f"flash_attention {case}: bf16 at hd 224 is not on the wgmma route")
+        before = fa.launches_by_route["wgmma"]
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if fa.launches_by_route["wgmma"] != before + 1:
+            fail(f"flash_attention {case}: the wgmma route did not launch")
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        out.append({"case": case, "dtype": "bfloat16", "route": "wgmma",
+                    "max_abs_err": err})
+        if not err <= FA_TOL["bfloat16"]:
+            fail(f"flash_attention {case} bf16: max err {err} > {FA_TOL['bfloat16']}")
+    log(f"flash_attention hd 224: {len(out)} cases on the wgmma route agree with the "
+        f"plain version (max err {max(e['max_abs_err'] for e in out):.2e})")
+    return out
 
 
 def check_flash_paths() -> list[dict]:
@@ -550,22 +657,24 @@ def check_flash_paths() -> list[dict]:
                ).abs().max().item()
         if not err <= FA_TOL["bfloat16"]:
             fail(f"flash_attention {what} {case}: max err {err} > {FA_TOL['bfloat16']}")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        del q, k, v, got
+        sets = flash_sets(case, g)
 
-        def kernel():
-            return fa.flash_attention(q, k, v, causal=causal)
-
-        def library():
+        def sdpa(q, k, v):
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=True)
 
+        kernel = rotating(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal), sets)
+        library = rotating(sdpa, sets)
         row = {"path": what, "case": case, "max_abs_err": err,
                "ms": time_ms(kernel),
-               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                                    causal=causal)),
+               "plain_ms": time_ms(rotating(lambda q, k, v: fa.flash_attention_plain(
+                   q, k, v, causal=causal), sets)),
                "library_ms": time_ms(library),
                "device_ms": device_ms(kernel, f"flash {what}"),
                "library_device_ms": device_ms(library, f"sdpa {what}")}
+        del sets
         row["bound_ms"], row["bound_by"] = bound_ms(*flash_work(case), BF16_FLOPS)
         rows.append(row)
         log(f"flash_attention {what} {case}: err {err:.2e}, kernel {row['ms']:.4f} ms "
@@ -607,13 +716,27 @@ def device_ms(fn, what: str, calls: int = 50, attempts: int = 3) -> float:
 
 
 def rms_mix(cfg) -> dict:
-    """{(rows, d): launches} of one main-path run (prefill + decode steps)."""
-    L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
-    H, KV = cfg.num_heads, cfg.num_kv_heads
+    """{(rows, d): launches} of one main-path run (prefill + decode steps).
+    mamba2: each block's norm at d and gated norm at d_inner; the hybrid
+    adds its shared block's two norms at 2*d per invocation."""
+    L, d = cfg.num_layers, cfg.d_model
     mix: dict = {}
 
     def add(shape, n):
         mix[shape] = mix.get(shape, 0) + n
+
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models import hybrid
+
+        invocations = hybrid.n_invocations(cfg) if cfg.family == "hybrid" else 0
+        for rows, n in ((BATCH * PROMPT, 1), (BATCH, NEW - 1)):
+            add((rows, d), L * n)                   # norm
+            add((rows, cfg.ssm_inner), L * n)       # gate_norm
+            if invocations:
+                add((rows, 2 * d), 2 * invocations * n)  # shared norm, mlp_norm
+        add((BATCH, d), NEW)                        # final_norm
+        return mix
+    hd, H, KV = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
 
     add((BATCH * PROMPT, d), 2 * L)            # attn_norm, mlp_norm
     add((BATCH * PROMPT * H, hd), L)           # q_norm
@@ -637,19 +760,21 @@ def rms_rows(mix: dict, g) -> list[dict]:
 
     out = []
     for (rows, d), n in sorted(mix.items()):
-        x = torch.randn((rows, d), generator=g, device="cuda", dtype=torch.bfloat16)
+        sets = input_sets(lambda k: (torch.randn((k, rows, d), generator=g, device="cuda",
+                                                 dtype=torch.bfloat16),), rows * d * 2)
         s = torch.randn((d,), generator=g, device="cuda", dtype=torch.bfloat16)
-        ms, library_ms = time_pair_ms(lambda: rn.rmsnorm(x, s),
-                                      lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6))
+        kernel = rotating(lambda x: rn.rmsnorm(x, s), sets)
+        library = rotating(lambda x: F.rms_norm(x, (d,), weight=s, eps=1e-6), sets)
+        ms, library_ms = time_pair_ms(kernel, library)
         row = {
             "shape": (rows, d),
             "ms": ms,
-            "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, s)),
+            "plain_ms": time_ms(rotating(lambda x: rn.rmsnorm_plain(x, s), sets)),
             "library_ms": library_ms,
-            "device_ms": device_ms(lambda: rn.rmsnorm(x, s), f"rmsnorm {rows}x{d}"),
-            "library_device_ms": device_ms(
-                lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6), f"F.rms_norm {rows}x{d}"),
+            "device_ms": device_ms(kernel, f"rmsnorm {rows}x{d}"),
+            "library_device_ms": device_ms(library, f"F.rms_norm {rows}x{d}"),
         }
+        del sets
         row["bytes"], row["flops"] = (2 * rows * d + d) * 2, 4.0 * rows * d
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], F32_FLOPS)
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
@@ -663,19 +788,20 @@ def rms_rows(mix: dict, g) -> list[dict]:
     return out
 
 
-def check_rmsnorm(cfg, other) -> dict:
+def check_rmsnorm(cfg, others) -> dict:
     """rmsnorm against its plain version at the sweep cases and at both
     configs' main-path shapes, then timed at each; the record's times are
-    ``cfg``'s mix, ``other``'s go to ``_per_shape_other``."""
+    ``cfg``'s mix; each of ``others``' go to ``_per_shape_other``."""
     import torch
 
     from repro_torch.kernels.rmsnorm import ops as rn
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    mix, other_mix = rms_mix(cfg), rms_mix(other)
+    mix = rms_mix(cfg)
+    other_mixes = {c.name: rms_mix(c) for c in others}
     errs, worst_serving = [], 0.0
-    for shape in RMS_CASES + sorted(set(mix) | set(other_mix)):
+    for shape in RMS_CASES + sorted(set(mix).union(*other_mixes.values())):
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dt)
             s = torch.randn(shape[-1], generator=g, device=dev).to(dt)
@@ -708,7 +834,10 @@ def check_rmsnorm(cfg, other) -> dict:
     total = sum(mix.values())
     totals = {key: sum(r[key] * r["weight"] for r in per_shape) / total
               for key in ("ms", "plain_ms", "library_ms", "device_ms")}
-    log(f"rmsnorm at {other.name}'s shapes:")
+    per_other = {}
+    for name, other_mix in other_mixes.items():
+        log(f"rmsnorm at {name}'s shapes:")
+        per_other[name] = rms_rows(other_mix, g)
     return {
         "name": "rmsnorm",
         "route": "cuda",
@@ -720,7 +849,7 @@ def check_rmsnorm(cfg, other) -> dict:
                     F32_FLOPS),
         "_cases": errs,
         "_per_shape": per_shape,
-        "_per_shape_other": {"arch": other.name, "rows": rms_rows(other_mix, g)},
+        "_per_shape_other": per_other,
     }
 
 
@@ -848,12 +977,15 @@ def profiled(run, what: str) -> dict:
     """``run()`` under torch.profiler: device time by kernel and the card's
     busy share of the wall time (the profiler's own cost lengthens the
     wall, so the idle share it gives is an upper bound). ``run`` ends in a
-    synchronisation and returns a dict of its own figures."""
+    synchronisation and returns a dict of its own figures. Only the card's
+    activity is traced: host-side operator events added nothing read here
+    and took most of a profile's time to collect (tens of seconds at
+    zamba2-7b's 100,000 launches of a generate)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         figures = run()
         wall = time.perf_counter() - t0
@@ -878,23 +1010,46 @@ def profiled(run, what: str) -> dict:
     return out
 
 
-def decode_bytes(cfg, params, cache_rows: float) -> float:
-    """Bytes one decode step of a BATCH-row batch must move: every weight
-    of the decoder but the embedding table (of which BATCH rows, unless it
-    is the tied output layer), and each layer's keys and values over
-    ``cache_rows`` rows (an encoder-decoder's cross keys and values over
-    PROMPT rows; its encoder is not read)."""
+def decode_bytes(cfg, cache_rows: float) -> float:
+    """Bytes one decode step of a BATCH-row batch must move, from ``cfg``'s
+    parameter specs: every weight of the decoder but the embedding table
+    (of which BATCH rows, unless it is the tied output layer), the hybrid's
+    shared block once per invocation; the keys and values of each
+    attention (a transformer layer's, or a hybrid invocation's at its
+    2*d/heads head_dim) over ``cache_rows`` rows (an encoder-decoder's
+    cross keys and values over PROMPT rows; its encoder is not read); and
+    an SSM's conv and SSM state, read and written."""
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.device import torch_dtype
+    from repro_torch.models import hybrid, mamba2
+
     encoder = ("enc/", "enc_final_norm/", "frontend/")
-    nbytes = sum(t.numel() * t.element_size() for n, t in params.items()
-                 if (n != "embed/tokens" or cfg.tie_embeddings)
-                 and not n.startswith(encoder))
-    nbytes += BATCH * cfg.d_model * 2
-    kv_row = cfg.num_layers * BATCH * cfg.num_kv_heads * cfg.resolved_head_dim * 2 * 2
-    return nbytes + kv_row * (cache_rows + (PROMPT if cfg.is_encdec else 0))
+    uses = hybrid.n_invocations(cfg) if cfg.family == "hybrid" else 1
+    nbytes = 0
+    for n, spec in models.param_specs(cfg).items():
+        if (n == "embed/tokens" and not cfg.tie_embeddings) or n.startswith(encoder):
+            continue
+        size = int(np.prod(spec.shape)) * torch_dtype(spec.dtype).itemsize
+        nbytes += size * (uses if n.startswith("shared_attn/") else 1)
+    nbytes += BATCH * cfg.d_model * torch_dtype(cfg.dtype).itemsize
+    if cfg.family in ("ssm", "hybrid"):
+        shapes, _ = mamba2.cache_spec(cfg, BATCH, 0)
+        for name in ("conv", "ssm"):
+            shape, dt = shapes[name]
+            nbytes += 2 * int(np.prod(shape)) * torch_dtype(dt).itemsize
+    if cfg.family == "ssm":
+        return float(nbytes)
+    if cfg.family == "hybrid":
+        kv_row = uses * BATCH * cfg.num_kv_heads * hybrid._hd(cfg) * 2 * 2
+    else:
+        kv_row = cfg.num_layers * BATCH * cfg.num_kv_heads * cfg.resolved_head_dim * 2 * 2
+    return float(nbytes + kv_row * (cache_rows + (PROMPT if cfg.is_encdec else 0)))
 
 
 def static_batch(cfg, ws, host, want: dict) -> tuple:
-    """The static batch of phases 3, 7 and 8: ``serve`` with ``strategy=
+    """The static batch of phases 3 and 7-10: ``serve`` with ``strategy=
     "stable"`` (1 paged copy) over BATCH prompts of PROMPT tokens, NEW new
     tokens; the launch counts must equal ``want``, every slot the host
     image's bytes; then the same ``generate`` again, and once more
@@ -932,7 +1087,7 @@ def static_batch(cfg, ws, host, want: dict) -> tuple:
     profile = profiled(steady_generate, f"{cfg.name} generate")
     step_s = steady.decode_s / (NEW - 1)
     mean_rows = PROMPT + NEW / 2
-    nbytes = decode_bytes(cfg, engine.params, mean_rows)
+    nbytes = decode_bytes(cfg, mean_rows)
     s = run.summary
     out = {"launches": got, "wall_s": wall, "load_strategy": s["load_strategy"],
            "load_s": s["load_s"], "load_split": split, "prefill_s": s["prefill_s"],
@@ -1828,6 +1983,42 @@ def encdec_path() -> dict:
     return out
 
 
+def ssm_path(arch: str, flash: int, rms: int) -> dict:
+    """Phases 9 and 10: mamba2-370m (``flash`` 0) and zamba2-7b (``flash``
+    14, all at hd 224 on the wgmma route) at their published widths, in a
+    fresh Workspace: the static batch with exact launches and byte-equal
+    slots, prefill logits against a float32 run, every token against a
+    teacher-forced float32 run, then the mixed-length ``serve_loop``."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    root, ws, app, host, setup = fresh_workspace(cfg)
+    try:
+        per_prefill = {"flash_attention": flash, "rmsnorm": rms}
+        want = {"flash_attention": flash, "rmsnorm": rms * NEW, "paged_reloc_copy": 1,
+                "non_causal": 0, "flash_routes": {"wgmma": flash, "simt": 0}}
+        run, out = static_batch(cfg, ws, host, want)
+        del host
+        out.update(setup=setup, n_params=models.n_params(cfg))
+        engine = run.engine
+        out.update(prefill_logits_check(
+            cfg, engine.params, {"tokens": torch.as_tensor(run.prompts, device="cuda")}))
+        out["static_tokens_check"] = tokens_check(
+            cfg, engine.params, list(run.prompts), list(run.tokens))
+        log(f"{cfg.name} static batch: all {out['static_tokens_check']['positions']} "
+            f"tokens within tolerance of a float32 run "
+            f"({out['static_tokens_check']['argmax_equal']} its argmax)")
+        out["serve_loop"] = serve_mixed(cfg, engine, per_prefill, {"rmsnorm": rms})
+        del run, engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -1873,15 +2064,19 @@ def main() -> None:
             ws, app, host, detail["setup"] = publish(cfg, root)
             if phase(2):
                 t = time.perf_counter()
-                kernels = [check_flash(cfg), check_rmsnorm(cfg, get_config(MOE_ARCH)),
+                kernels = [check_flash(cfg),
+                           check_rmsnorm(cfg, [get_config(a) for a in (
+                               MOE_ARCH, SSM_ARCH, HYBRID_ARCH)]),
                            check_paged(host.table)]
                 kernels[0]["_new_paths"] = check_flash_paths()
+                kernels[0]["_hd224_cases"] = check_flash_hd224()
                 detail["phase_s"][2] = time.perf_counter() - t
             if phase(3):
                 timed(3, "main_path", main_path, cfg, ws, host)
             del host
             if phase(4):
-                for arch in (ARCH, MOE_ARCH, "qwen2-moe-a2.7b", ENCDEC_ARCH):
+                for arch in (ARCH, MOE_ARCH, "qwen2-moe-a2.7b", ENCDEC_ARCH, SSM_ARCH,
+                             HYBRID_ARCH):
                     timed(4, f"small_input {arch}", small_input, arch)
             if phase(5):
                 timed(5, "serve_epoch", serve_epoch, cfg, ws, app)
@@ -1895,6 +2090,10 @@ def main() -> None:
         timed(7, "moe", moe_path)
     if phase(8):
         timed(8, "encdec", encdec_path)
+    if phase(9):
+        timed(9, "ssm", ssm_path, SSM_ARCH, SSM_FLASH, SSM_RMS)
+    if phase(10):
+        timed(10, "hybrid", ssm_path, HYBRID_ARCH, HYBRID_FLASH, HYBRID_RMS)
     detail["empty_profiles"] = EMPTY_PROFILES
     detail["total_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1910,7 +2109,11 @@ def main() -> None:
              MOE_ARCH: detail["moe"]["launches"],
              f"{MOE_ARCH} serve_loop": detail["moe"]["serve_loop"]["launches"],
              ENCDEC_ARCH: detail["encdec"]["launches"],
-             f"{ENCDEC_ARCH} serve_loop": detail["encdec"]["serve_loop"]["launches"]}
+             f"{ENCDEC_ARCH} serve_loop": detail["encdec"]["serve_loop"]["launches"],
+             SSM_ARCH: detail["ssm"]["launches"],
+             f"{SSM_ARCH} serve_loop": detail["ssm"]["serve_loop"]["launches"],
+             HYBRID_ARCH: detail["hybrid"]["launches"],
+             f"{HYBRID_ARCH} serve_loop": detail["hybrid"]["serve_loop"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     kernels[0]["non_causal_by_path"] = {p: c.get("non_causal", 0) for p, c in paths.items()}
     for k in kernels:

@@ -15,7 +15,7 @@
 //
 // Two routes, chosen by the wrapper from (dtype, head_dim), never on failure:
 //
-// * wgmma (bf16, hd 64 / 128 / 256): fa_forward_wgmma.
+// * wgmma (bf16, hd 64 / 128 / 224 / 256): fa_forward_wgmma.
 //   - A CTA owns BQ = 128 query rows of one (batch, head): two consumer
 //     warpgroups of 64 rows each (one wgmma M) and one producer warpgroup.
 //     The grid is (B*H, q tiles) with the q tile index reversed, so the
@@ -49,6 +49,15 @@
 //     cross the diagonal, the window edge or the ragged Sk tail. TMA fills
 //     rows past Sk with zeros, and a zero score is not a masked one, so
 //     k_pos < Sk is masked explicitly there.
+//   - hd 224 (zamba2-7b's shared block) runs on the hd-256 instantiation.
+//     Its tensor maps carry the tensor's real inner dimension, 224 (448-byte
+//     rows), so the fourth slab's box (columns 192-255) is filled with
+//     zeros past column 224 by TMA (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE). Q K^T
+//     over 256 columns then equals Q K^T over 224, PV's columns past 224
+//     are zero, and the epilogue stores only columns < hd. The scale is the
+//     real hd's. A native HD = 224 would truncate SLABS = HD / 64 to 3 (32
+//     columns dropped) and wgmma_pv has no n = 224 form: both would compile
+//     to a kernel that is wrong without failing.
 //
 // * simt (float32 at any supported hd, bf16 at hd 16 / 32): fa_forward_simt,
 //   the first, CUDA-core kernel. f32 stays off the tensor cores on purpose:
@@ -550,6 +559,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
 
 struct Shape {
   int Sq, Sk, H, KV, causal, window, q_offset;
+  int hd;  // the tensors' head_dim: HD, or 224 on the HD = 256 tile
 };
 
 // One consumer warpgroup: 64 query rows, every KV tile of the CTA's range.
@@ -704,10 +714,11 @@ __device__ __forceinline__ void consume(
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh + 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
-    if (qr0 < sh.Sq)
+    const bool col = 8 * j < sh.hd;  // none past the real head_dim (hd 224)
+    if (col && qr0 < sh.Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + qr0 * o_ss + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 0] / d0, acc[4 * j + 1] / d0);
-    if (qr1 < sh.Sq)
+    if (col && qr1 < sh.Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + qr1 * o_ss + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
   }
@@ -844,14 +855,16 @@ struct Operand {
   int64_t sb, ss, sh;
 };
 
+// The maps take the tensors' real head_dim sh.hd (<= HD): TMA zero-fills
+// the tile's columns past it.
 template <int HD>
 int launch(const Operand& q, const Operand& k, const Operand& v, void* o,
            int B, const Shape& sh, const int64_t* so, float scale,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int e = make_map(&mq, q.ptr, HD, sh.H, sh.Sq, B, q.sb, q.ss, q.sh);
-  if (!e) e = make_map(&mk, k.ptr, HD, sh.KV, sh.Sk, B, k.sb, k.ss, k.sh);
-  if (!e) e = make_map(&mv, v.ptr, HD, sh.KV, sh.Sk, B, v.sb, v.ss, v.sh);
+  int e = make_map(&mq, q.ptr, sh.hd, sh.H, sh.Sq, B, q.sb, q.ss, q.sh);
+  if (!e) e = make_map(&mk, k.ptr, sh.hd, sh.KV, sh.Sk, B, k.sb, k.ss, k.sh);
+  if (!e) e = make_map(&mv, v.ptr, sh.hd, sh.KV, sh.Sk, B, v.sb, v.ss, v.sh);
   if (e) return e;
   auto kern = flash_wgmma_kernel<HD>;
   static bool smem_set = false;
@@ -898,7 +911,8 @@ int fa_forward_simt(int dtype, int hd, const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// The tensor-core route: bf16 only, hd 64, 128 or 256, Sq and Sk >= 1. The
+// The tensor-core route: bf16 only, hd 64, 128, 224 or 256 (224 on the
+// 256 tile), Sq and Sk >= 1. The
 // wrapper has checked what TMA needs: 16-byte aligned bases, strides in
 // 16-byte multiples, head_dim contiguous. Same arguments as the simt route
 // without the dtype; returns 0, a cudaError_t, or an ERR_* code above.
@@ -909,11 +923,12 @@ int fa_forward_wgmma(int hd, const void* q, const void* k, const void* v,
                      int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                      int causal, int window, int q_offset, float scale,
                      void* stream) {
-  if (hd != 64 && hd != 128 && hd != 256) return cudaErrorInvalidValue;
+  if (hd != 64 && hd != 128 && hd != 224 && hd != 256)
+    return cudaErrorInvalidValue;
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV) return cudaErrorInvalidValue;
   const wg::Operand oq{q, q_sb, q_ss, q_sh}, ok{k, k_sb, k_ss, k_sh},
       ov{v, v_sb, v_ss, v_sh};
-  const wg::Shape sh{Sq, Sk, H, KV, causal, window, q_offset};
+  const wg::Shape sh{Sq, Sk, H, KV, causal, window, q_offset, hd};
   const int64_t so[3] = {o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {

@@ -14,9 +14,11 @@ on the H100 and what each design does about that.
   fallback to the plain version or from one kernel to the other.
 
 The kernel is chosen by argument, never on failure: ``route(dtype, hd)``
-gives ``"wgmma"`` (the tensor-core kernel: bf16 at hd 64, 128 or 256) or
-``"simt"`` (the CUDA-core kernel: float32 at every supported hd, bf16 at hd
-16 or 32), and raises on anything else. The wgmma route reads its inputs
+gives ``"wgmma"`` (the tensor-core kernel: bf16 at hd 64, 128, 224 or
+256; hd 224 runs on the hd-256 tile with TMA's zero fill past column 224)
+or ``"simt"`` (the CUDA-core kernel: float32 at hd 16, 32, 64, 128 or 256,
+bf16 at hd 16 or 32), and raises on anything else (float32 at hd 224
+too: no served path needs it). The wgmma route reads its inputs
 with TMA, so ``tma_strides`` also checks that each base pointer is 16-byte
 aligned and each stride a multiple of 16 bytes, and raises otherwise.
 
@@ -33,8 +35,8 @@ import torch
 
 NEG_INF = -(2.0**30)       # finite on purpose: masked softmax stays NaN-free
 SOURCE = "flash_attention.cu"
-WGMMA_HEAD_DIMS = (64, 128, 256)
-HEAD_DIMS = (16, 32) + WGMMA_HEAD_DIMS
+WGMMA_HEAD_DIMS = (64, 128, 224, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)       # the simt route's, in both dtypes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -45,14 +47,16 @@ _lib = None          # the ctypes library, loaded at first launch
 
 def route(dtype, hd: int) -> str:
     """Which kernel serves q/k/v of ``dtype`` at head_dim ``hd``:
-    ``"wgmma"`` for bf16 at hd 64/128/256, ``"simt"`` for float32 at any hd
-    of ``HEAD_DIMS`` and bf16 at hd 16/32. Raises on anything else."""
+    ``"wgmma"`` for bf16 at hd 64/128/224/256, ``"simt"`` for float32 at any
+    hd of ``HEAD_DIMS`` and bf16 at hd 16/32. Raises on anything else."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention kernels take float32 or bfloat16, got {dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} has no {str(dtype).removeprefix('torch.')} "
+                         f"kernel: wgmma takes bf16 at {WGMMA_HEAD_DIMS}, simt "
+                         f"{HEAD_DIMS}")
     return "simt"
 
 

@@ -1,4 +1,4 @@
-from . import api, common, moe, specs, transformer
+from . import api, common, hybrid, mamba2, moe, specs, transformer
 from .api import (
     decode_step,
     forward,
@@ -13,6 +13,8 @@ from .api import (
 __all__ = [
     "api",
     "common",
+    "hybrid",
+    "mamba2",
     "moe",
     "specs",
     "transformer",

@@ -1,5 +1,5 @@
-"""Uniform model API, dispatched on config family (the transformer
-families: dense, MoE, encoder-decoder, VLM; mamba2 and the hybrid raise).
+"""Uniform model API, dispatched on config family: the transformer families
+(dense, MoE, encoder-decoder, VLM), mamba2 (``ssm``) and the hybrid.
 
     param_specs(cfg)                  -> {name: ParamSpec}   (symbol manifest)
     init_params(cfg, seed, device)    -> {name: tensor}
@@ -15,20 +15,17 @@ import numpy as np
 
 from repro_torch.core import SymbolRef
 
-from . import transformer
+from . import hybrid, mamba2, transformer
 from .specs import ParamSpec, init_params as _init
 from .specs import param_count
 
-_TRANSFORMER_FAMILIES = ("dense", "moe", "audio", "vlm")
-
 
 def _mod(cfg):
-    if cfg.family in _TRANSFORMER_FAMILIES:
-        return transformer
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: mamba2 and "
-        "the hybrid are ROADMAP Queue A item 10"
-    )
+    if cfg.family == "ssm":
+        return mamba2
+    if cfg.family == "hybrid":
+        return hybrid
+    return transformer  # dense / moe / audio / vlm
 
 
 def param_specs(cfg) -> dict[str, ParamSpec]:

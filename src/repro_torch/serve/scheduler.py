@@ -6,12 +6,15 @@ slots, each holding one request's private KV cache row, admitted and
 retired independently at every decode step.
 
 The slot state is ``(cache, toks, out_buf, steps, keys)`` as batched
-tensors on the engine's device: ``cache["k"]``/``["v"]`` are
-``(L, slots, S, KV, hd)`` with one row per slot, and ``cache["pos"]`` is a
-tuple of per-slot positions kept on the host (the host issued every step,
-so it knows them). An encoder-decoder's slots also hold the cross keys and
-values ``cache["xk"]``/``["xv"]``, padded to the same ``S`` rows, with
-``cache["xpos"]`` the last valid row of each (its prompt's length - 1):
+tensors on the engine's device. Every tensor leaf of a B=1 prefill's cache
+gets one row per slot on axis 1: ``k``/``v`` ``(L, slots, S, KV, hd)`` for
+a transformer, ``conv``/``ssm`` ``(L, slots, ...)`` for mamba2, all four
+for the hybrid (whose ``k``/``v`` are per shared-block invocation).
+``cache["pos"]`` is a tuple of per-slot positions kept on the host (the
+host issued every step, so it knows them). An encoder-decoder's slots
+also hold the cross keys and values ``cache["xk"]``/``["xv"]``, padded to
+the same ``S`` rows, with ``cache["xpos"]`` the last valid row of each
+(its prompt's length - 1):
 the reference sizes its slot template to the first admission's prompt and
 cannot serve mixed prompt lengths (ROADMAP Queue C). The reference vmaps a
 B=1 ``decode_step`` over slots; ``torch.func.vmap`` cannot pass through the
@@ -54,6 +57,9 @@ from . import faults
 
 #: Source sentinel: no more requests will ever arrive; drain and return.
 STOP = object()
+
+#: An encoder-decoder's cross K/V: padded to the self K/V's rows in a slot.
+_CROSS = ("xk", "xv")
 
 
 @dataclass(frozen=True)
@@ -260,12 +266,6 @@ def stub_frames(cfg, batch: int, seq: int, device) -> torch.Tensor:
     return torch.from_numpy(frames).to(device=device, dtype=torch_dtype(cfg.dtype))
 
 
-def _check_family(cfg) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM cache slots are not ported yet (ROADMAP Queue A item 10)")
-
-
 class SlotScheduler:
     """The device half of continuous batching for one ``ServeEngine``.
 
@@ -296,7 +296,6 @@ class SlotScheduler:
     ):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        _check_family(engine.cfg)
         self.engine = engine
         self.slots = max_batch
         self.max_new_cap = max_new_cap   # out_buf width; 0 = first admit's
@@ -324,10 +323,14 @@ class SlotScheduler:
     def _init_state(self, row_cache, max_new_cap: int) -> None:
         self.max_new_cap = max_new_cap
         dev = self.engine.device
-        k = row_cache["k"]
-        shape = (k.shape[0], self.slots) + tuple(k.shape[2:])
-        names = ("k", "v", "xk", "xv") if "xk" in row_cache else ("k", "v")
-        cache = {n: torch.zeros(shape, dtype=k.dtype, device=dev) for n in names}
+        cache = {}
+        for name, t in row_cache.items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            # a leaf's rows lie on axis 1; cross K/V get the self K/V's rows
+            like = row_cache["k"] if name in _CROSS else t
+            shape = (t.shape[0], self.slots) + tuple(like.shape[2:])
+            cache[name] = torch.zeros(shape, dtype=t.dtype, device=dev)
         cache["pos"] = (0,) * self.slots
         if "xk" in row_cache:
             cache["xpos"] = (0,) * self.slots
@@ -345,7 +348,8 @@ class SlotScheduler:
         """Prefill ``req`` (B=1, the engine's ``impl``) and write its cache
         row into a free slot. Returns the slot index. A prompt holding a
         token id outside the vocabulary, or longer than the engine's
-        ``cache_len``, raises ``ValueError`` first."""
+        ``cache_len`` (a cache with a sequence axis), raises ``ValueError``
+        first."""
         free = self.free_slots
         if not free:
             raise RuntimeError("admit called with no free slot")
@@ -353,7 +357,7 @@ class SlotScheduler:
         eng = self.engine
         check_token_ids(req.prompt, eng.cfg.vocab_size, f"request {req.rid}")
         n = len(req.prompt)
-        if eng.cache_len and n > eng.cache_len:
+        if eng.cache_len and n > eng.cache_len and eng.cfg.family != "ssm":
             raise ValueError(
                 f"request {req.rid}: a prompt of {n} tokens does not fit the "
                 f"engine's cache_len of {eng.cache_len}")
@@ -379,16 +383,19 @@ class SlotScheduler:
                 "longest request first or pass max_new_cap to serve_loop"
             )
         cache, toks, out_buf, steps, keys = self._state
-        cache["k"][:, idx] = row_cache["k"][:, 0]
-        cache["v"][:, idx] = row_cache["v"][:, 0]
+        for name, t in row_cache.items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            if name in _CROSS:        # cross K/V padded with zeros to S rows
+                cache[name][:, idx, :t.shape[2]] = t[:, 0]
+                cache[name][:, idx, t.shape[2]:] = 0
+            else:
+                cache[name][:, idx] = t[:, 0]
         pos = list(cache["pos"])
         pos[idx] = int(row_cache["pos"])
         cache["pos"] = tuple(pos)
-        if "xk" in cache:             # cross K/V padded with zeros to S rows
+        if "xk" in cache:
             s_enc = row_cache["xk"].shape[2]
-            for name in ("xk", "xv"):
-                cache[name][:, idx, :s_enc] = row_cache[name][:, 0]
-                cache[name][:, idx, s_enc:] = 0
             xpos = list(cache["xpos"])
             xpos[idx] = s_enc - 1
             cache["xpos"] = tuple(xpos)

@@ -45,6 +45,13 @@ WGMMA_CASES = [
         (1, 300, 300, 2, 1, hd, True, 40, 0),     # window smaller than a tile
     )
 ]
+# hd 224 (zamba2-7b's shared block) runs on the hd-256 tile: the reference's
+# kernel sweep shapes at hd 224, an odd length, a window, and the prefill
+HD224_CASES = [case[:5] + (224,) + case[6:] for case in FA_CASES] + [
+    (1, 333, 333, 4, 2, 224, True, 0),       # odd length, GQA
+    (2, 257, 257, 2, 2, 224, True, 100),     # window, ragged
+    (4, 1024, 1024, 32, 32, 224, True, 0),   # zamba2-7b's prefill shape
+]
 
 
 def qkv(case, seed=0):
@@ -99,6 +106,63 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, case, dt):
                                     q_offset=q_offset)
     tol = 1e-4 if dt == torch.float32 else 2e-2
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HD224_CASES)
+def test_flash_attention_hd224_on_the_wgmma_route_matches_plain_on_card(cuda, case):
+    causal, window = case[6], case[7]
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in qkv(case, seed=3))
+    n = fa.launches_by_route["wgmma"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches_by_route["wgmma"] == n + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_attention_hd224_writes_no_column_past_224_on_card(cuda):
+    """The kernel's C entry writes into a view of the first 224 columns of
+    256-wide rows whose last 32 hold a sentinel: the hd-256 tile's
+    epilogue must leave them."""
+    case = (2, 200, 200, 4, 2, 224, True, 0)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in qkv(case, seed=4))
+    buf = torch.full((2, 200, 4, 256), 7.0, device=cuda, dtype=torch.bfloat16)
+    out = buf[..., :224]
+    _, strides = fa._check(q, k, v)
+    err = fa._library().fa_forward_wgmma(
+        224, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 200, 200, 4, 2,
+        *strides, *(out.stride(i) for i in range(3)), 1, 0, 0, 224**-0.5,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((buf[..., 224:] == 7.0).all())
+    want = fa.flash_attention_plain(q, k, v)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_attention_hd224_reads_columns_192_to_223_and_no_further_on_card(cuda):
+    """q, k and v are non-zero only in columns 192-223, the fourth slab's
+    part inside hd 224: a kernel that dropped the slab (SLABS = 224 / 64 =
+    3) would give uniform weights and zero output there. They are views of
+    256-wide rows whose columns 224-255 hold large values, which a map
+    wider than 224 would read into every score."""
+    case = (1, 300, 300, 4, 2, 224, True, 0)
+    bufs = []
+    for a in qkv(case, seed=5):
+        wide = np.full(a.shape[:3] + (256,), 50.0, np.float32)
+        wide[..., :224] = 0.0
+        wide[..., 192:224] = a[..., 192:224]
+        bufs.append(torch.from_numpy(wide).to(cuda, torch.bfloat16))
+    q, k, v = (b[..., :224] for b in bufs)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert want[..., 192:].float().abs().amax().item() > 0.5   # far above the tolerance
+    assert not bool(got[..., :192].any())
 
 
 @pytest.mark.cuda
@@ -282,6 +346,19 @@ def test_moe_and_encdec_smoke_prefill_and_decode_match_cpu_on_card(cuda, arch):
     """The smoke configs' prefill and greedy decode on the card (kernels)
     equal the CPU's (plain versions, which the CPU tests hold against the
     JAX package): logits within 1e-4 at every step, the same tokens."""
+    _smoke_on_card_matches_cpu(cuda, arch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_ssm_and_hybrid_smoke_prefill_and_decode_match_cpu_on_card(cuda, arch):
+    """mamba2 and the hybrid (its shared block's attention at hd 32 on the
+    simt route, f32) on the card against the CPU, as above; the prompt is
+    longer than the smoke chunk of 8 and not a multiple of it."""
+    _smoke_on_card_matches_cpu(cuda, arch)
+
+
+def _smoke_on_card_matches_cpu(cuda, arch):
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.serve.scheduler import stub_frames

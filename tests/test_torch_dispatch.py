@@ -15,6 +15,7 @@ from repro_torch.kernels.flash_attention import ops as fa
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 224, "wgmma"),   # zamba2-7b's shared block, on the hd-256 tile
     (torch.bfloat16, 16, "simt"),
     (torch.bfloat16, 32, "simt"),
     (torch.float32, 16, "simt"),
@@ -33,6 +34,8 @@ def test_route_table(dtype, hd, want):
     (torch.bfloat16, 48, ValueError),
     (torch.bfloat16, 512, ValueError),
     (torch.float32, 8, ValueError),
+    (torch.float32, 224, ValueError),   # the simt route has no hd-224 case
+    (torch.bfloat16, 192, ValueError),
 ])
 def test_route_refuses_what_no_kernel_takes(dtype, hd, err):
     with pytest.raises(err):
@@ -100,3 +103,12 @@ def test_cpu_wrapper_counts_no_route():
     out = fa.flash_attention(q, k, k)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert fa.launches_by_route == before
+
+
+def test_tma_strides_take_hd_224_rows_of_448_bytes():
+    # zamba2-7b's shared block: hd 224 is 448 B a row, a multiple of 16
+    q = torch.zeros((2, 8, 4, 224), dtype=torch.bfloat16)
+    assert fa.tma_strides(q) == (8 * 4 * 224, 4 * 224, 224)
+    wide = torch.zeros((2, 8, 4, 256), dtype=torch.bfloat16)[..., :224]
+    assert fa.tma_strides(wide) == (8 * 4 * 256, 4 * 256, 256)
+

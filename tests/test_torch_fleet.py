@@ -85,6 +85,32 @@ def test_sigkilled_worker_midstream_rerouted_stream_intact(port_root):
     assert sorted(w["worker"] for w in rep.worker_stats) == [0, 1]
 
 
+def test_mamba2_sigkilled_worker_respawned_zero_lost(tmp_path):
+    """The reference's ``test_chaos.py::test_sigkilled_worker_respawned_zero_lost``
+    on the port, with mamba2-370m (the reference's serving workhorse): 10
+    requests at 100 Hz into 2 supervised workers, worker 0 SIGKILLed at its
+    6th decode step (after its warmup's 3), streamed; 10 of 10 complete and
+    every stream reassembles whole."""
+    ws = Workspace.open(tmp_path / "store", epoch_cache=EpochCache())
+    arch = "mamba2-370m"
+    app = launch_serve.publish_model(ws, get_config(arch, smoke=True), device="cpu")
+    n = 10
+    try:
+        rep = run_traffic(ws, app, arch=arch, workers=2, n_requests=n, rate_hz=100.0,
+                          prompt_len=10, max_new_tokens=NEW, max_batch=2, stream=True,
+                          supervise=True, faults={"die_at_step": 6, "worker": 0},
+                          device="cpu", timeout=JOIN_S * 2)
+    finally:
+        shm_arena.unlink_root_segments(ws.registry)
+    s = rep.summary()
+    assert rep.sent == n and rep.completed == n, s          # zero lost
+    assert rep.restarts >= 1 and rep.rerouted_requests >= 1 and rep.failed == 0, s
+    assert rep.stream_gaps == 0 and rep.stream_mismatches == 0, s
+    assert set(rep.stream_tokens) == set(range(n)), s
+    assert all(len(t) == NEW for t in rep.stream_tokens.values()), s
+    assert rep.kill_p99_s > 0 and np.isfinite(rep.kill_p99_s), s
+
+
 # ----------------------------------------------------------------- fleet
 def test_fleet_shares_one_segment_with_the_references_bytes(tmp_path):
     """Two load-only stable-shm workers on a root the reference published:

@@ -145,13 +145,6 @@ def test_port_bundle_equals_reference_bundle_bf16():
             (s.name, s.shape, s.dtype, s.offset, s.nbytes) for s in want.symbols.values()]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
-def test_unported_families_raise_not_implemented(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-
-
 # ----------------------------------------------- common layers, one by one
 def _np(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)

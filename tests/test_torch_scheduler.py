@@ -155,14 +155,6 @@ def test_serve_loop_requires_decode_headroom():
         engine.serve_loop(lambda: STOP, lambda c: None)
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-370m", "item 10"),
-                                       ("zamba2-7b", "item 10")])
-def test_unported_families_raise_naming_their_roadmap_item(arch, item):
-    engine = ServeEngine(get_config(arch, smoke=True), {}, cache_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        engine.serve_loop(lambda: STOP, lambda c: None)
-
-
 # ---------------------------------------------- streaming and sampling
 def test_serve_loop_stream_matches_nonstream_byte_identical():
     cfg, engine = _engine()

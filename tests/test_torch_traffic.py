@@ -40,14 +40,14 @@ PROMPT, NEW = 20, 4       # prompts longer than the smoke window
 JOIN_S = 90.0
 
 
-def _ref_publish(ws):
+def _ref_publish(ws, arch=ARCH):
     """The reference's ``tests/test_traffic.py`` ``_publish_model``: weights
     drawn by the reference's ``init_params``, bundle and app published."""
     from repro import models as ref_models
     from repro.ckpt import bundle_from_params as ref_bundle
     from repro.core import ObjectKind, make_object
 
-    cfg = ref_config(ARCH, smoke=True)
+    cfg = ref_config(arch, smoke=True)
     params = {n: np.asarray(v) for n, v in ref_models.init_params(cfg, 0).items()}
     bundle, payload = ref_bundle(f"weights:{cfg.name}", "v1", params)
     app, _ = make_object(
@@ -298,6 +298,35 @@ def test_traffic_tokens_equal_the_reference_engines(ref_root):
             assert int(rid) not in served
             served[int(rid)] = gen
     assert {r: g for r, g in served.items() if r < n} == dict.fromkeys(range(n), ws.epoch_gen)
+    assert _no_ring_left(ws)
+
+
+def test_mamba2_traffic_tokens_equal_the_reference_engines(tmp_path):
+    """mamba2-370m, the reference's serving workhorse, on a root the
+    reference published: 2 port workers under Poisson load stream, for
+    every rid, the reference ``generate``'s greedy continuation of the same
+    prompt (f32 smoke: identical tokens); SSM slots need no cache_len."""
+    arch = "mamba2-370m"
+    ref = RefWorkspace.open(tmp_path / "store", epoch_cache=RefEpochCache())
+    app = _ref_publish(ref, arch)
+    ws = Workspace.open(ref.root, epoch_cache=EpochCache())
+    n = 6
+    try:
+        rep = run_traffic(ws, app, arch=arch, workers=2, n_requests=n, rate_hz=100.0,
+                          prompt_len=PROMPT, max_new_tokens=NEW, max_batch=2, seed=3,
+                          stream=True, device="cpu", timeout=JOIN_S * 2)
+    finally:
+        shm_arena.unlink_root_segments(ws.registry)
+    s = rep.summary()
+    assert rep.sent == n and rep.completed == n and rep.failed == 0, s
+    assert rep.partial_frames == n * NEW and rep.stream_gaps == 0, s
+    assert rep.stream_dup_frames == 0 and rep.stream_mismatches == 0, s
+    prompts = np.random.default_rng(3).integers(0, 256, (n, PROMPT), dtype=np.int32)
+    engine = RefServeEngine.from_workspace(ref_config(arch, smoke=True), ref, app)
+    want, _ = engine.generate(prompts, NEW)
+    for rid in range(n):
+        np.testing.assert_array_equal(rep.stream_tokens[rid], np.asarray(want)[rid])
+    assert sum(w["serve_loop"]["admitted"] for w in rep.worker_stats) == n + 2
     assert _no_ring_left(ws)
 
 
