@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
 
 1. build: compile the port's three CUDA C++ sources with nvcc (one process
    per source, started together), print ``-Xptxas -v``'s registers and
-   spills for the flash-attention and rmsnorm kernels, and check that the
+   spills for the flash-attention and rmsnorm kernels (rmsnorm's forward,
+   its backward and the backward's column sums apart), and check that the
    flash library's SASS holds tensor-core ``HGMMA`` instructions (with the
    toolkit's ``cuobjdump``; "not checked" where there is none). Set-up then
    publishes gemma3-1b at its published size (26 layers, bf16, random
@@ -28,7 +29,13 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    turns (their calls' time is the host's), and their device times come
    from the profiler. Every timed call of flash attention and rmsnorm takes
    the next of several copies of its inputs, totalling more than twice
-   the 50 MB L2, so no reading is of inputs left in L2 by the call before;
+   the 50 MB L2, so no reading is of inputs left in L2 by the call before.
+   rmsnorm's backward kernel: the sweep cases in f32 and bf16 and
+   gemma3-1b's training shapes ((8192, 1152), (32768, 256), (8192, 256)) in
+   bf16, dx within the forward's tolerances, dscale within 1e-4 of the
+   float32 plain sum's largest value, both the same bits on a second call;
+   timed at the training shapes beside ``torch.autograd.grad`` through
+   ``F.rms_norm``, no reading faster than its bound;
 3. main path: ``repro_torch.launch.serve.serve`` with that app: load with
    ``strategy="stable"``, which builds the arena on the card with one
    paged_reloc_copy launch (the params are views of it), prefill 4 prompts
@@ -115,7 +122,22 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    times, 32 heads of hd 224, d_ff 14,336; vocab 32,000, bf16;
    7,085,109,456 parameters, a 14.17 GB arena): as phase 9, with 14 flash
    launches a prefill, all on the wgmma route at hd 224, and 191 rmsnorm
-   launches a prefill and a step.
+   launches a prefill and a step;
+11. training gemma3-1b at its published widths (bf16, remat "nothing",
+   AdamW with float32 moments) at the reference's train_4k sequence length,
+   global batch 2, through ``repro_torch.train.Trainer``: first step 0's
+   loss and every gradient on the kernel path against a float32 plain-norm
+   run on the card, within 1.5x the bf16 plain-norm run's error; then
+   publish, an epoch-path start (opt/* INIT), steps, the step-3 checkpoint
+   (a management event, published on a background thread), a failure
+   injected at step 4, a restart on the table-driven path from opt/step,
+   and step 4. It must launch exactly 2 paged copies, 0 flash and, a step,
+   the rmsnorm forward and backward counts of ``train_rms_launches`` (209
+   and 105); restart once from step 3, with opt/* INIT at the first start
+   and DIRECT after; the checkpoint's bytes, loaded back on the host, must
+   equal the trainer's snapshot and the restart's arena the host image;
+   step 3's loss must be the same bits before and after the restart, and
+   every loss finite. One more step is profiled.
 
 ``--phases`` runs only the listed phases (the build always runs) and prints
 no result lines: it is for development on the card.
@@ -129,9 +151,11 @@ beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -157,6 +181,14 @@ RMS_CASES = [(1, 8), (4, 300), (37, 128), (128, 1024), (5, 7),
              (4096, 1152), (4, 1024, 4, 256)]
 FA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # other summation order
 RMS_TOL = {"float32": (1e-5, 0.0), "bfloat16": (3e-2, 2.0**-7)}  # (abs, rel)
+# rmsnorm's backward at gemma3-1b's training shapes (phase 11: 2 x 4096
+# tokens), launches a step: attn, mlp and final norm; q-norm (4 heads); k-norm
+RMS_BWD_TRAIN = {(8192, 1152): 53, (32768, 256): 26, (8192, 256): 26}
+RMS_BWD_TRAIN_KERNELS = (     # the instantiations those shapes run (bf16)
+    "rmsnorm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, 8, 128, 2>",
+    "rmsnorm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, 8, 32, 1>")
+RMS_BWD_FLOPS = 12            # per element: the two row sums, dx, dscale's term
+DSCALE_TOL = 1e-4             # of the float32 plain sum's largest value
 
 # the main path
 ARCH, BATCH, PROMPT, NEW = "gemma3-1b", 4, 1024, 32
@@ -187,6 +219,15 @@ MIX_REQUESTS = 8              # serve_loop requests of SERVE_LENS tokens
 SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-7b"
 SSM_FLASH, SSM_RMS = 0, 97              # 2 x 48 + 1
 HYBRID_FLASH, HYBRID_RMS = 14, 191      # 2 x 81 + 2 x 14 + 1
+# training at published widths (phase 11): gemma3-1b at the reference's
+# train_4k sequence length, global batch 2 (8,192 tokens a step); a failure
+# injected at step 4, after the step-3 checkpoint
+TRAIN_SEQ, TRAIN_BATCH = 4096, 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 3, 4
+TRAIN_OPT = {"peak_lr": 1e-4, "warmup_steps": 2, "decay_steps": 5}
+# the kernel path's loss and gradient errors against a float32 plain-norm
+# run: at most this times the bf16 plain-norm run's
+GRAD_RATIO = 1.5
 # an MoE layer's output against the per-expert float32 FFN, relative to the
 # layer's largest output value (bf16 rounds each product and sum at 2**-8)
 MOE_OUT_TOL = 0.03
@@ -351,13 +392,18 @@ def build_kernels() -> dict:
         out["ptxas"][source] = rows
         if source == prc.SOURCE:
             continue
-        if source == rn.SOURCE:        # 48 instantiations: one summary line
-            log(f"  ptxas: {len(rows)} kernels, at most "
-                f"{max(r['regs'] for r in rows)} registers, "
-                f"{sum(r['spill_bytes'] for r in rows)} spill bytes in all")
+        if source == rn.SOURCE:        # 48 instantiations a pass: summary lines
+            for what, prefix in (("forward", "rmsnorm_kernel"),
+                                 ("backward", "rmsnorm_bwd_kernel"),
+                                 ("backward column sums", "col_sum_kernel")):
+                part = [r for r in rows if r["kernel"].startswith(prefix)]
+                log(f"  ptxas {what}: {len(part)} kernels, at most "
+                    f"{max((r['regs'] for r in part), default=0)} registers, "
+                    f"{sum(r['spill_bytes'] for r in part)} spill bytes in all")
             for r in rows:
-                if r["spill_bytes"]:
-                    log(f"  ptxas: {r['kernel']} spills {r['spill_bytes']} bytes")
+                if r["spill_bytes"] or r["kernel"] in RMS_BWD_TRAIN_KERNELS:
+                    log(f"  ptxas: {r['kernel']}: {r['regs']} registers, "
+                        f"{r['spill_bytes']} spill bytes")
             continue
         for r in rows:
             log(f"  ptxas: {r['kernel']}: {r['regs']} registers, "
@@ -853,6 +899,121 @@ def check_rmsnorm(cfg, others) -> dict:
     }
 
 
+def rms_bwd_inputs(shape, dt, g, copies: int = 1) -> tuple:
+    """x, scale and dy for the backward at ``shape``: x and dy with a
+    leading axis of ``copies``."""
+    import torch
+
+    x = torch.randn((copies,) + shape, generator=g, device="cuda").to(dt)
+    s = (1 + 0.5 * torch.randn(shape[-1], generator=g, device="cuda")).to(dt)
+    dy = torch.randn((copies,) + shape, generator=g, device="cuda").to(dt)
+    return x, s, dy
+
+
+def check_rmsnorm_backward() -> dict:
+    """rmsnorm's backward kernel against ``rmsnorm_backward_plain``: the
+    sweep's cases in float32 and bfloat16, gemma3-1b's training shapes in
+    bfloat16; dx within RMS_TOL, dscale within DSCALE_TOL of the float32
+    plain sum's largest value (plus bf16's rounding of each value), and
+    both the same bits on a second call. Then each training shape timed:
+    the kernel and the library's backward (``torch.autograd.grad`` through
+    ``F.rms_norm``, graphs built beforehand) in turns, the plain version,
+    profiler device times, and the bound, with inputs rotated out of L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    errs, worst = [], 0.0
+    cases = [(shape, dt) for shape in RMS_CASES for dt in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16) for shape in RMS_BWD_TRAIN]
+    for shape, dt in cases:
+        x, s, dy = (t[0] if t.dim() > 1 else t for t in rms_bwd_inputs(shape, dt, g))
+        dx, ds = rn._launch_backward(x, s, dy, 1e-6)
+        dx2, ds2 = rn._launch_backward(x, s, dy, 1e-6)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
+            fail(f"rmsnorm backward {shape} {name}: two calls differ")
+        want_dx, _ = rn.rmsnorm_backward_plain(x, s, dy)
+        f32_ds = rn.rmsnorm_backward_plain(x.float(), s.float(), dy.float())[1]
+        atol, rtol = RMS_TOL[name]
+        diff = (dx.float() - want_dx.float()).abs()
+        err = diff.max().item()
+        if not (diff - rtol * want_dx.float().abs()).max().item() <= atol:
+            fail(f"rmsnorm backward {shape} {name}: dx error {err} beyond {atol} + "
+                 f"{rtol}*|dx|")
+        ds_err = (ds.float() - f32_ds).abs()
+        ds_tol = DSCALE_TOL * f32_ds.abs().max() + (
+            2.0**-8 * f32_ds.abs() if dt == torch.bfloat16 else 0)
+        if not bool((ds_err <= ds_tol).all()):
+            fail(f"rmsnorm backward {shape} {name}: dscale error "
+                 f"{ds_err.max().item()} beyond {DSCALE_TOL} of its largest value")
+        errs.append({"shape": shape, "dtype": name, "dx_max_abs_err": err,
+                     "dscale_max_rel_err": (ds_err.max() / f32_ds.abs().max()).item()})
+        if shape in RMS_BWD_TRAIN:
+            worst = max(worst, err)
+    log(f"rmsnorm backward: {len(errs)} cases agree with the plain version, the "
+        "same bits on a second call")
+
+    per_shape = []
+    for shape, n in RMS_BWD_TRAIN.items():
+        rows, d = shape
+        sets_n = int(2 * L2_BYTES // (2 * rows * d * 2)) + 1
+        x, s, dy = rms_bwd_inputs(shape, torch.bfloat16, g, sets_n)
+        sets = [(x[i], dy[i]) for i in range(sets_n)]
+        xs = [x[i].detach().requires_grad_() for i in range(sets_n)]
+        sg = s.detach().requires_grad_()
+        ys = [F.rms_norm(xi, (d,), weight=sg, eps=1e-6) for xi in xs]
+        lib_sets = [(xs[i], ys[i], dy[i]) for i in range(sets_n)]
+        kernel = rotating(lambda xi, dyi: rn._launch_backward(xi, s, dyi, 1e-6), sets)
+        library = rotating(lambda xi, yi, dyi: torch.autograd.grad(
+            yi, (xi, sg), dyi, retain_graph=True), lib_sets)
+        ms, library_ms = time_pair_ms(kernel, library)
+        row = {
+            "shape": shape, "ms": ms, "library_ms": library_ms,
+            "plain_ms": time_ms(rotating(
+                lambda xi, dyi: rn.rmsnorm_backward_plain(xi, s, dyi), sets)),
+            "device_ms": device_ms(kernel, f"rmsnorm backward {rows}x{d}"),
+            "library_device_ms": device_ms(library, f"F.rms_norm backward {rows}x{d}"),
+        }
+        del sets, lib_sets, xs, ys, x, dy
+        row["bytes"] = (3 * rows * d + 2 * d) * 2      # x, dy, dx; scale, dscale
+        row["flops"] = float(RMS_BWD_FLOPS * rows * d)
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], F32_FLOPS)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        if row["bound_share"] > 1.0:
+            fail(f"rmsnorm backward {shape}: device time {row['device_ms']} ms is "
+                 f"below its bound {row['bound_ms']} ms")
+        row["weight"] = n
+        per_shape.append(row)
+        log(f"rmsnorm backward {shape} x{n}: kernel {row['ms']:.4f} ms a call (device "
+            f"{row['device_ms'] * 1e3:.3f} us, {row['bound_share']:.1%} of the bound), "
+            f"plain {row['plain_ms']:.4f} ms, F.rms_norm backward "
+            f"{row['library_ms']:.4f} ms (device {row['library_device_ms'] * 1e3:.3f} us),"
+            f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    torch.cuda.empty_cache()
+    total = sum(RMS_BWD_TRAIN.values())
+    totals = {key: sum(r[key] * r["weight"] for r in per_shape) / total
+              for key in ("ms", "plain_ms", "library_ms", "device_ms",
+                          "library_device_ms")}
+    return {
+        "name": "rmsnorm_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/models/common.py:25",
+        "replaces_what": "jax.vjp of the reference's jnp rms_norm (it has no "
+                         "Pallas backward)",
+        "max_abs_err": worst,
+        **totals,
+        **mix_bound([(r["weight"], r["bytes"], r["flops"]) for r in per_shape],
+                    F32_FLOPS),
+        "_cases": errs,
+        "_per_shape": per_shape,
+    }
+
+
 def check_paged(table) -> dict:
     """paged_reloc_copy against its plain version, exactly: the reference's
     cases, then gemma3-1b's own page table (``table``) over a random blob."""
@@ -1137,7 +1298,7 @@ def main_path(cfg, ws, host) -> dict:
     from repro_torch import models
 
     want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
-            "paged_reloc_copy": 1, "non_causal": 0,
+            "rmsnorm_backward": 0, "paged_reloc_copy": 1, "non_causal": 0,
             "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
     run, result = static_batch(cfg, ws, host, want)
     result.update(prefill_logits_check(
@@ -1264,7 +1425,7 @@ def serve_epoch(cfg, ws, app) -> dict:
     got = launch_counts()
     want = {"flash_attention": FLASH_PER_PREFILL * report.admitted,
             "rmsnorm": RMS_PER_STEP * (report.admitted + report.steps),
-            "paged_reloc_copy": 2,
+            "rmsnorm_backward": 0, "paged_reloc_copy": 2,
             "flash_routes": {"wgmma": FLASH_PER_PREFILL * report.admitted, "simt": 0}}
     s = report.summary()
     log(f"serve across an epoch: {json.dumps(s)}; launches {got}, expected {want}")
@@ -1380,7 +1541,7 @@ def worker_launches(stats: dict, flips: int) -> tuple[dict, dict]:
     adm, steps = loop["admitted"], loop["steps"]
     want = {"flash_attention": FLASH_PER_PREFILL * adm,
             "rmsnorm": RMS_PER_STEP * (adm + steps),
-            "paged_reloc_copy": 1 + flips,
+            "rmsnorm_backward": 0, "paged_reloc_copy": 1 + flips,
             "flash_routes": {"wgmma": FLASH_PER_PREFILL * adm, "simt": 0}}
     return stats["launches"], want
 
@@ -1567,8 +1728,8 @@ def traffic_plane(cfg, ws, app) -> dict:
         f"margin {tokens_check['max_margin']:.5f}, "
         f"{tokens_check['max_margin_over_tol']:.3f} of its tolerance; "
         f"{time.perf_counter() - t:.1f} s)")
-    total = {"flash_attention": 0, "rmsnorm": 0, "paged_reloc_copy": 0,
-             "flash_routes": {"wgmma": 0, "simt": 0}}
+    total = {"flash_attention": 0, "rmsnorm": 0, "rmsnorm_backward": 0,
+             "paged_reloc_copy": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
     per_worker = []
     for st in rep.worker_stats:
         got, want = worker_launches(st, flips=1)
@@ -1589,7 +1750,7 @@ def traffic_plane(cfg, ws, app) -> dict:
         if got != want or loop["rollovers"] != 1:
             fail(f"drive A worker {row['worker']}: launches {got} != {want} or "
                  f"rollovers {loop['rollovers']} != 1")
-        for k in ("flash_attention", "rmsnorm", "paged_reloc_copy"):
+        for k in ("flash_attention", "rmsnorm", "rmsnorm_backward", "paged_reloc_copy"):
             total[k] += got[k]
         for r in total["flash_routes"]:
             total["flash_routes"][r] += got["flash_routes"][r]
@@ -1836,7 +1997,8 @@ def serve_mixed(cfg, engine, per_admission: dict, per_step: dict) -> dict:
     wall = time.perf_counter() - t0
     got = {**launch_counts(), "non_causal": fa.launches_non_causal}
     want = {k: per_admission.get(k, 0) * rep.admitted + per_step.get(k, 0) * rep.steps
-            for k in ("flash_attention", "rmsnorm", "paged_reloc_copy", "non_causal")}
+            for k in ("flash_attention", "rmsnorm", "rmsnorm_backward",
+                      "paged_reloc_copy", "non_causal")}
     want["flash_routes"] = {"wgmma": want["flash_attention"], "simt": 0}
     s = rep.summary()
     log(f"{cfg.name} serve_loop: {json.dumps(s)}; launches {got}, expected {want}")
@@ -1875,7 +2037,7 @@ def moe_path() -> dict:
     try:
         per_prefill = {"flash_attention": MOE_FLASH, "rmsnorm": MOE_RMS}
         want = {"flash_attention": MOE_FLASH, "rmsnorm": MOE_RMS * NEW,
-                "paged_reloc_copy": 1, "non_causal": 0,
+                "rmsnorm_backward": 0, "paged_reloc_copy": 1, "non_causal": 0,
                 "flash_routes": {"wgmma": MOE_FLASH, "simt": 0}}
         run, out = static_batch(cfg, ws, host, want)
         del host
@@ -1958,8 +2120,8 @@ def encdec_path() -> dict:
     root, ws, app, host, setup = fresh_workspace(cfg)
     try:
         per_prefill = {"flash_attention": ENCDEC_FLASH, "non_causal": ENCDEC_CROSS}
-        want = {"flash_attention": ENCDEC_FLASH, "rmsnorm": 0, "paged_reloc_copy": 1,
-                "non_causal": ENCDEC_CROSS,
+        want = {"flash_attention": ENCDEC_FLASH, "rmsnorm": 0, "rmsnorm_backward": 0,
+                "paged_reloc_copy": 1, "non_causal": ENCDEC_CROSS,
                 "flash_routes": {"wgmma": ENCDEC_FLASH, "simt": 0}}
         run, out = static_batch(cfg, ws, host, want)
         del host
@@ -1998,8 +2160,9 @@ def ssm_path(arch: str, flash: int, rms: int) -> dict:
     root, ws, app, host, setup = fresh_workspace(cfg)
     try:
         per_prefill = {"flash_attention": flash, "rmsnorm": rms}
-        want = {"flash_attention": flash, "rmsnorm": rms * NEW, "paged_reloc_copy": 1,
-                "non_causal": 0, "flash_routes": {"wgmma": flash, "simt": 0}}
+        want = {"flash_attention": flash, "rmsnorm": rms * NEW, "rmsnorm_backward": 0,
+                "paged_reloc_copy": 1, "non_causal": 0,
+                "flash_routes": {"wgmma": flash, "simt": 0}}
         run, out = static_batch(cfg, ws, host, want)
         del host
         out.update(setup=setup, n_params=models.n_params(cfg))
@@ -2013,6 +2176,291 @@ def ssm_path(arch: str, flash: int, rms: int) -> dict:
             f"({out['static_tokens_check']['argmax_equal']} its argmax)")
         out["serve_loop"] = serve_mixed(cfg, engine, per_prefill, {"rmsnorm": rms})
         del run, engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 11
+def train_rms_launches(cfg) -> dict:
+    """rmsnorm launches of one training step (one microbatch) of a decoder
+    transformer with RMSNorm: each norm (attn and mlp, q and k with
+    qk_norm, a layer; the final norm) once forward and once backward, and
+    every norm inside a layer body (the remat unit) once more in the
+    recompute, unless the policy is "none"."""
+    inside = cfg.num_layers * (2 + 2 * bool(cfg.qk_norm))
+    recompute = 0 if cfg.remat_policy == "none" else inside
+    return {"forward": inside + 1 + recompute, "backward": inside + 1}
+
+
+def attention_pairs(seq: int, window: int) -> int:
+    """Visible (q, k) pairs of one causal sequence, a window of ``window``
+    keys (0: all earlier keys)."""
+    if window <= 0 or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
+def train_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model flops of one training step of a decoder-only transformer: 6 x
+    parameters x tokens (forward and backward of every weight product; the
+    tied embedding counted once, as the output layer), plus attention's
+    4 x hd flops per visible (q, k) pair and head, x 3 for forward and
+    backward. The remat recompute is not counted."""
+    from repro_torch import models
+    from repro_torch.models import transformer
+
+    flops = 6.0 * models.n_params(cfg) * batch * seq
+    hd, H = cfg.resolved_head_dim, cfg.num_heads
+    for w in transformer._layer_windows(cfg):
+        flops += 3 * 4.0 * hd * H * batch * attention_pairs(seq, w)
+    return flops
+
+
+@contextlib.contextmanager
+def plain_norms():
+    """Every model's ``rms_norm`` runs the plain version (autograd through
+    plain torch) inside the block."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    from repro_torch.models import hybrid, mamba2, transformer
+
+    saved = [(m, m.rms_norm) for m in (transformer, mamba2, hybrid)]
+    for m, _ in saved:
+        m.rms_norm = lambda x, scale, eps=1e-6: rmsnorm_plain(x, scale, eps=eps)
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.rms_norm = fn
+
+
+def train_grad_check(cfg, params, batch) -> dict:
+    """Step 0's loss and every parameter's gradient on the kernel path
+    (rmsnorm forward and backward kernels), against a float32 plain-norm
+    run on the card: the kernel path's error (the loss's absolute error;
+    each gradient's L2 error over the float32 gradient's L2 norm) at most
+    GRAD_RATIO x the bf16 plain-norm run's. A gradient cut at a norm would
+    be far off, and a norm scale would get none. The kernel path runs
+    twice: the gradients that differ between the two runs are reported
+    (ops of the step that are not deterministic)."""
+    import torch
+
+    from repro_torch import models
+
+    def run(c, p, plain: bool):
+        leaves = {n: t.detach().requires_grad_() for n, t in p.items()}
+        with plain_norms() if plain else contextlib.nullcontext():
+            loss = models.loss_fn(c, leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach().item(), dict(zip(leaves, grads))
+
+    t0 = time.perf_counter()
+    p32 = {n: t.float() for n, t in params.items()}
+    l32, g32 = run(cfg.replace(dtype="float32"), p32, True)
+    del p32
+    out = {"loss_f32": l32, "grads": {}}
+    kernel_grads = None
+    for name, plain in (("kernel", False), ("bf16 plain", True)):
+        loss, grads = run(cfg, params, plain)
+        out[f"loss_{name}"] = loss
+        out[f"loss_err_{name}"] = abs(loss - l32)
+        for n, g in grads.items():
+            diff = g.float() - g32[n]
+            out["grads"].setdefault(n, {})[name] = {
+                "rel_l2": (diff.norm() / g32[n].norm()).item(),
+                "max_abs": diff.abs().max().item()}
+        if name == "kernel":
+            kernel_grads = grads
+        del grads
+    del g32
+    _, again = run(cfg, params, False)
+    out["nondeterministic_grads"] = sorted(
+        n for n, g in again.items() if not torch.equal(g, kernel_grads[n]))
+    del again, kernel_grads
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    def ratio(r):      # an exact bf16 plain gradient asks the kernel path's to be exact
+        k, p = r["kernel"]["rel_l2"], r["bf16 plain"]["rel_l2"]
+        return k / p if p else (0.0 if not k else float("inf"))
+
+    worst = max(ratio(r) for r in out["grads"].values())
+    out["worst_grad_ratio"] = worst
+    log(f"{cfg.name} step-0 gradients vs a float32 plain-norm run: loss error kernel "
+        f"{out['loss_err_kernel']:.3e}, bf16 plain {out['loss_err_bf16 plain']:.3e}; "
+        f"largest gradient error ratio (kernel / bf16 plain, L2) {worst:.4f} over "
+        f"{len(out['grads'])} parameters; gradients that differ between two kernel-path "
+        f"runs: {out['nondeterministic_grads']}")
+    for n, r in sorted(out["grads"].items()):
+        log(f"  {n}: L2 error kernel {r['kernel']['rel_l2']:.3e}, bf16 plain "
+            f"{r['bf16 plain']['rel_l2']:.3e}")
+    if not out["loss_err_kernel"] <= GRAD_RATIO * out["loss_err_bf16 plain"]:
+        fail(f"{cfg.name}: kernel path's loss error {out['loss_err_kernel']} > "
+             f"{GRAD_RATIO} x the bf16 plain run's {out['loss_err_bf16 plain']}")
+    if not worst <= GRAD_RATIO:
+        fail(f"{cfg.name}: a gradient's error on the kernel path is {worst} x the bf16 "
+             f"plain run's (limit {GRAD_RATIO})")
+    return out
+
+
+def train_path() -> dict:
+    """Phase 11: gemma3-1b trained at its published widths through the
+    port's Trainer: publish, an epoch-path start (opt/* INIT), steps, the
+    step-3 checkpoint, a failure at step 4, a restart on the table-driven
+    path from opt/step, the rest of the steps; then the checks and the
+    profile of one more step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import RelocType
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    class CheckedTrainer(Trainer):
+        """At each start: the opt/* symbols' relocation types, and at a
+        restart a host copy of the arena as loaded (outside ``total_s``)."""
+
+        def _startup(self):
+            out = super()._startup()
+            t = time.perf_counter()
+            table = self.image.table
+            types = sorted({int(r["type"]) for r in table.rows
+                            if table.name_at(r["symbol_name"]).startswith("opt/")})
+            arena = self.image.arena.to("cpu", copy=True) if self.starts else None
+            self.starts.append({"opt_types": types, "arena": arena,
+                                "check_s": time.perf_counter() - t})
+            return out
+
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+                       fail_at_step=TRAIN_FAIL_AT, opt=OptConfig(**TRAIN_OPT))
+    root = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    log(f"{cfg.name} training: {shutil.disk_usage(root).free / 1e9:.1f} GB free on "
+        "the workspace's disk")
+    try:
+        tr = CheckedTrainer(root, cfg, shape, tcfg, device="cuda")
+        tr.starts = []
+        tr.ckpt.keep_last = True
+        t0 = time.perf_counter()
+        params = models.init_params(cfg, tcfg.seed, "cuda")
+        tr.publish(params)
+        publish_s = time.perf_counter() - t0
+        log(f"{cfg.name} training: published {tr.app_name} in {publish_s:.1f} s")
+        batch0 = to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ, step=0, seed=tcfg.seed), "cuda")
+        grads = train_grad_check(cfg, params, batch0)
+        del params, batch0
+        torch.cuda.empty_cache()
+
+        zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+        per_step, steps_run = train_rms_launches(cfg), len(res.losses)
+        want = {"flash_attention": 0, "rmsnorm": per_step["forward"] * steps_run,
+                "rmsnorm_backward": per_step["backward"] * steps_run,
+                "paged_reloc_copy": 2, "non_causal": 0,
+                "flash_routes": {"wgmma": 0, "simt": 0}}
+        log(f"{cfg.name} training ran in {wall:.1f} s: losses {res.losses}, restarts "
+            f"{res.restarts}, starts {res.startup_stats}")
+        log(f"{cfg.name} training launches {got}, expected {want} (rmsnorm {per_step} a "
+            f"step, remat policy {cfg.remat_policy!r}, x {steps_run} steps run)")
+        if got != want:
+            fail(f"{cfg.name} training: kernel launches {got} != {want}")
+        if not all(np.isfinite(res.losses)):
+            fail(f"{cfg.name} training: a loss is not finite: {res.losses}")
+        resumed = [st["resume_step"] for st in res.startup_stats]
+        if (res.restarts, res.steps_done, resumed) != (1, TRAIN_STEPS, [0, TRAIN_CKPT_EVERY]):
+            fail(f"{cfg.name} training: restarts {res.restarts}, steps {res.steps_done}, "
+                 f"resume steps {resumed}")
+        opt_types = [st["opt_types"] for st in tr.starts]
+        if opt_types != [[int(RelocType.INIT)], [int(RelocType.DIRECT)]]:
+            fail(f"{cfg.name} training: opt/* relocation types by start {opt_types}, "
+                 "not INIT then DIRECT")
+        # step 3 ran before the failure and again after the restart
+        before, after = res.losses[TRAIN_CKPT_EVERY], res.losses[TRAIN_CKPT_EVERY + 1]
+        if before != after:
+            fail(f"{cfg.name} training: step-3 loss {before!r} before the failure, "
+                 f"{after!r} after the restart")
+        log(f"{cfg.name} training: restarted once from opt/step = {resumed[1]}; opt/* "
+            f"INIT at the first start, DIRECT after the checkpoint; step-3 loss "
+            f"{before!r} before and after the restart")
+
+        t1 = time.perf_counter()
+        host = tr.ws.load(tr.app_name, strategy="stable")
+        host_load_s = time.perf_counter() - t1
+        snap = {**tr.ckpt.last_snapshot[0], **tr.ckpt.last_snapshot[1]}
+        if set(snap) != set(host.tensors):
+            fail(f"{cfg.name} training: snapshot names differ from the host image's")
+        host_bytes = {n: torch.from_numpy(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+                      for n, a in host.tensors.items()}
+        for n, t in snap.items():
+            if not torch.equal(t.contiguous().reshape(-1).view(torch.uint8), host_bytes[n]):
+                fail(f"{cfg.name} training: checkpoint symbol {n!r} differs from the "
+                     "trainer's snapshot")
+        arena = tr.starts[1]["arena"]
+        for n, slot in tr.image.table.slots().items():
+            if not torch.equal(arena[slot.offset:slot.offset + slot.nbytes], host_bytes[n]):
+                fail(f"{cfg.name} training: restart arena slot {n!r} differs from the "
+                     "host image")
+        log(f"{cfg.name} training: the step-3 checkpoint's {len(snap)} symbols, loaded "
+            f"back on the host ({host_load_s:.1f} s), equal the trainer's snapshot, and "
+            "every slot of the restart's arena equals the host image")
+        del host, host_bytes, snap, arena
+        tr.starts[1]["arena"] = None
+        tr.ckpt.last_snapshot = None
+
+        step_fn = make_train_fn(cfg, tcfg.opt, impl=tcfg.impl)
+        batch = to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, step=TRAIN_STEPS, seed=tcfg.seed),
+                          "cuda")
+        profile = profiled(
+            lambda: {"loss": float(step_fn(tr.params, tr.opt_state, batch)[2]["loss"])},
+            f"{cfg.name} train step")
+
+        # steady: every step but the process's first and step 3 of the first
+        # start, which ran while the step-3 checkpoint published
+        overlapped = res.step_s[TRAIN_CKPT_EVERY]
+        step_s = statistics.median(s for i, s in enumerate(res.step_s)
+                                   if i not in (0, TRAIN_CKPT_EVERY))
+        flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        restart = res.startup_stats[1]
+        out = {
+            "launches": got, "launches_per_step": per_step, "steps_run": steps_run,
+            "losses": res.losses, "step_s": res.step_s, "steady_step_s": step_s,
+            "step_during_checkpoint_publish_s": overlapped,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "model_flops_per_step": flops,
+            "model_tflop_s": flops / step_s / 1e12,
+            "bf16_peak_share": flops / step_s / BF16_FLOPS,
+            "publish_s": publish_s, "starts": res.startup_stats,
+            "checkpoint_save_s": tr.ckpt.save_seconds,
+            "checkpoint_snapshot_s": tr.ckpt.snapshot_seconds,
+            "restart_to_first_step_s": (restart["ckpt_wait_s"] + restart["total_s"]
+                                        + res.step_s[TRAIN_CKPT_EVERY + 1]),
+            "peak_allocated_gb": peak / 1e9, "wall_s": wall,
+            "host_load_s": host_load_s, "grad_check": grads, "profile": profile,
+            "n_params": models.n_params(cfg),
+        }
+        log(f"{cfg.name} training: " + json.dumps({k: out[k] for k in (
+            "steady_step_s", "step_during_checkpoint_publish_s", "tokens_per_s",
+            "model_tflop_s", "bf16_peak_share",
+            "publish_s", "checkpoint_save_s", "checkpoint_snapshot_s",
+            "restart_to_first_step_s", "peak_allocated_gb")}))
+        if peak > 70e9:
+            log(f"{cfg.name} training: peak allocation {peak / 1e9:.1f} GB is above 70 GB")
+        del tr, step_fn, batch
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -2067,7 +2515,8 @@ def main() -> None:
                 kernels = [check_flash(cfg),
                            check_rmsnorm(cfg, [get_config(a) for a in (
                                MOE_ARCH, SSM_ARCH, HYBRID_ARCH)]),
-                           check_paged(host.table)]
+                           check_paged(host.table),
+                           check_rmsnorm_backward()]
                 kernels[0]["_new_paths"] = check_flash_paths()
                 kernels[0]["_hd224_cases"] = check_flash_hd224()
                 detail["phase_s"][2] = time.perf_counter() - t
@@ -2094,6 +2543,8 @@ def main() -> None:
         timed(9, "ssm", ssm_path, SSM_ARCH, SSM_FLASH, SSM_RMS)
     if phase(10):
         timed(10, "hybrid", ssm_path, HYBRID_ARCH, HYBRID_FLASH, HYBRID_RMS)
+    if phase(11):
+        timed(11, "train", train_path)
     detail["empty_profiles"] = EMPTY_PROFILES
     detail["total_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -2113,7 +2564,8 @@ def main() -> None:
              SSM_ARCH: detail["ssm"]["launches"],
              f"{SSM_ARCH} serve_loop": detail["ssm"]["serve_loop"]["launches"],
              HYBRID_ARCH: detail["hybrid"]["launches"],
-             f"{HYBRID_ARCH} serve_loop": detail["hybrid"]["serve_loop"]["launches"]}
+             f"{HYBRID_ARCH} serve_loop": detail["hybrid"]["serve_loop"]["launches"],
+             "train": detail["train"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     kernels[0]["non_causal_by_path"] = {p: c.get("non_causal", 0) for p, c in paths.items()}
     for k in kernels:
@@ -2128,11 +2580,14 @@ def main() -> None:
     # device_ms: the profiler's device time a launch, beside "ms" (CUDA
     # events over back-to-back calls, the host's rate where it is slower);
     # null for the page copy, whose event time is its device time
-    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+    keys = ("name", "route", "source", "replaces", "replaces_what", "launches",
+            "launches_by_path",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log(f"done in {detail['total_s']:.1f} s; phases {json.dumps(detail['phase_s'])}")
-    print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in kernels]}))
+    print(json.dumps({"kernels": [{k: kern.get(k) for k in keys
+                                   if k in kern or k != "replaces_what"}
+                                  for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

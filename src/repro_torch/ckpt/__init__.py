@@ -1,3 +1,5 @@
 from .bundle import bundle_from_params, fragment_name, image_to_params, params_from_image
+from .checkpoint import CheckpointError, Checkpointer, restore_train_state
 
-__all__ = ["bundle_from_params", "fragment_name", "image_to_params", "params_from_image"]
+__all__ = ["CheckpointError", "Checkpointer", "bundle_from_params", "fragment_name", "image_to_params",
+           "params_from_image", "restore_train_state"]

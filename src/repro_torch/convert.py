@@ -14,6 +14,9 @@ mapping) as tensors, so the model can never write into a shared arena.
 * ``params_from_device_image`` takes an image whose arena was built on the
   device (``core/device_arena.py``): its tensors already are torch views of
   an arena that load owns alone, so it checks them and copies nothing.
+* ``opt_state_from_numpy`` carries the reference's AdamW state
+  (``{"m", "v", "step"}`` of numpy arrays) into the port's, so both
+  packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -79,4 +82,24 @@ def params_from_device_image(image, specs: Mapping[str, ParamSpec], device):
         if t.device.type != dev.type or (dev.index is not None and t.device != dev):
             raise ValueError(f"{name}: image tensor on {t.device}, engine on {dev}")
         out[name] = t
+    return out
+
+
+def opt_state_from_numpy(state: Mapping, specs: Mapping[str, ParamSpec], device="cuda"):
+    """The reference's optimizer state -> the port's: ``{"m": {name: float32
+    tensor}, "v": {...}, "step": 0-d int32 tensor}`` on ``device``, one
+    moment per spec name, shaped as the spec."""
+    dev = resolve_device(device)
+    out = {}
+    for mv in ("m", "v"):
+        out[mv] = {}
+        for name, spec in specs.items():
+            arr = np.asarray(state[mv][name])
+            if arr.dtype != np.float32:
+                raise TypeError(f"{mv}/{name}: moments are float32, got {arr.dtype}")
+            out[mv][name] = _tensor(arr, "float32", spec.shape, dev)
+    step = np.asarray(state["step"])
+    if step.size != 1:
+        raise ValueError(f"step has {step.size} values")
+    out["step"] = torch.tensor(int(step.reshape(())), dtype=torch.int32, device=dev)
     return out

@@ -16,7 +16,11 @@ runs when a load names a device:
 (d) apply the CAST/INIT/unaligned rows (``meta["host_rows"]``) after the
     kernel, as the reference folds its gather in before them: the rows run
     on the host with the executor's row code against a host copy of each
-    slot they touch, and each slot goes back up whole;
+    slot they touch, and each slot goes back up whole. With the default
+    zeros initializer an INIT row of a slot would write the zeros the
+    arena already holds, so it is left out (``rows_to_apply``): a
+    trainer's first start would otherwise copy its whole optimizer state
+    (weak symbols, all INIT) down and up again;
 (e) bind KERNEL symbols on the host;
 (f) free the blob and synchronise, so ``LoadStats`` covers the device
     work: ``upload_s``, ``kernel_s`` and ``host_rows_s`` split ``io_s``;
@@ -37,7 +41,7 @@ import torch
 
 from repro_torch.device import resolve_device, torch_dtype
 
-from .objects import PAGE_BYTES, align_up
+from .objects import PAGE_BYTES, RelocType, align_up
 from .relocation import RelocationTable, blob_layout, compile_page_table
 
 STAGE_BYTES = 64 << 20      # each of the two pinned staging buffers
@@ -96,6 +100,21 @@ def _upload_blob(executor, table: RelocationTable, src: np.ndarray,
     return blob
 
 
+def rows_to_apply(executor, table: RelocationTable, rows) -> list:
+    """The host rows that change a ``torch.zeros`` arena: all of them, but
+    for the INIT rows of slots when the executor's initializer is the
+    default zeros one (an INIT row without a slot, a weak kernel ref that
+    binds the no-op entry, stays)."""
+    from .executor import _zeros_init
+
+    if executor.initializer is not _zeros_init:
+        return list(rows)
+    slots = table.slots()
+    types, names = table.rows["type"], table.rows["symbol_name"]
+    return [i for i in rows if not (int(types[i]) == RelocType.INIT
+                                    and table.name_at(names[i]) in slots)]
+
+
 def _apply_host_rows(executor, table: RelocationTable, flat: torch.Tensor,
                      kernels: dict, rows) -> None:
     """Run ``rows`` on the host against host copies of the slots they
@@ -147,7 +166,8 @@ def apply_table_on_device(executor, app, table: RelocationTable, stats, device):
 
     flat = arena.view(-1).view(torch.uint8)
     kernels: dict[str, str] = {}
-    if host_rows:                                                 # (d)
+    host_rows = rows_to_apply(executor, table, host_rows)         # (d)
+    if host_rows:
         _apply_host_rows(executor, table, flat, kernels, host_rows)
     executor._bind_kernels(table, kernels)                        # (e)
     _sync(dev)                                                    # (f)

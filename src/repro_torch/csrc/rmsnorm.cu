@@ -29,6 +29,10 @@
 //   rows need no copy); the output is contiguous (rows of d).
 // * scale may be f32 or bf16 whatever x is; it is read through the L1.
 //
+// The backward (rms_backward, below) is the gradient JAX takes of the
+// reference's jnp rms_norm (repro/models/common.py:25); the reference has
+// no Pallas backward, since its training path never calls the kernel.
+//
 // Status: see PERF.md for its times on the H100 and the card they were
 // measured on.
 
@@ -186,6 +190,204 @@ cudaError_t by_alignment(const void* x, const void* w, void* out, int64_t n,
   return by_width<T, W, 1>(x, w, out, n, d, x_rs, eps, s);
 }
 
+// ---------------------------------------------------------------- backward
+// Per row, with r = rsqrt(mean(x^2) + eps), xh = x * r and g = dy * scale,
+// all in f32:
+//   dx     = r * (g - xh * mean(g * xh))        cast to x's dtype
+//   dscale = sum over rows of dy * xh           f32, cast to scale's dtype
+//
+// What bounds it: bytes, as the forward: x and dy read once, dx written
+// once (plus the column partials below, a sixteenth of the rows), a few
+// flops per element.
+//
+// Design.
+// * The forward's row teams and 16-byte vectors. r is recomputed from x
+//   with the forward's own summation order, so it is the forward's r bit
+//   for bit, and the forward keeps its outputs as they are.
+// * Up to NV = 4 a thread keeps its x and dy vectors in registers between
+//   the row sums and dx; wider rows read them again (from L1/L2).
+// * dscale is deterministic, with no atomics: a team walks the rows
+//   blockIdx.x * ROWS + team, stepping by gridDim.x * ROWS, and sums dy * xh
+//   for its columns in registers; each (block, team) writes its column
+//   sums to its own row of a float32 partials buffer, and col_sum adds the
+//   partial rows in a fixed order. The grid depends only on n and the
+//   buffer's rows, so two calls on the same inputs give the same bits.
+template <typename T, typename W, int VEC, int TEAM, int NV>
+__global__ void __launch_bounds__(NT) rmsnorm_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy, const W* __restrict__ w,
+    T* __restrict__ dx, float* __restrict__ part, int64_t n, int d,
+    int64_t x_rs, float eps) {
+  constexpr int ROWS = NT / TEAM;
+  constexpr bool KEEP = NV <= 4;
+  const int team = threadIdx.x / TEAM, t = threadIdx.x % TEAM;
+  const int nvec = d / VEC;
+  float acc[NV][VEC];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
+
+  // TEAM > 32 means ROWS == 1: every thread of the block walks the same
+  // rows, so the block barriers below are reached by all of them
+  for (int64_t row = int64_t(blockIdx.x) * ROWS + team; row < n;
+       row += int64_t(gridDim.x) * ROWS) {
+    const T* xr = x + row * x_rs;
+    const T* gr = dy + row * d;
+    float xv[KEEP ? NV : 1][VEC], gv[KEEP ? NV : 1][VEC];
+    float ss = 0.f, sg = 0.f;  // sum x^2 (the forward's order); sum g * x
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = t + i * TEAM;
+      if (j < nvec) {
+        float a[VEC], b[VEC], s[VEC];
+        load<T, VEC>(xr + j * VEC, a);
+        load<T, VEC>(gr + j * VEC, b);
+        load<W, VEC>(w + j * VEC, s);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          ss = fmaf(a[e], a[e], ss);
+          sg = fmaf(b[e] * s[e], a[e], sg);
+          if constexpr (KEEP) {
+            xv[i][e] = a[e];
+            gv[i][e] = b[e];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sg += __shfl_xor_sync(0xffffffffu, sg, off);
+    }
+    if constexpr (TEAM > 32) {
+      __shared__ float red[2][NT / 32];
+      if (t % 32 == 0) {
+        red[0][t / 32] = ss;
+        red[1][t / 32] = sg;
+      }
+      __syncthreads();
+      ss = 0.f;
+      sg = 0.f;
+#pragma unroll
+      for (int k = 0; k < TEAM / 32; ++k) {
+        ss += red[0][k];
+        sg += red[1][k];
+      }
+      __syncthreads();  // red is written again for the next row
+    }
+    const float r = rsqrtf(ss / float(d) + eps);
+    const float mg = r * sg / float(d);  // mean(g * xh)
+
+    T* orow = dx + row * d;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = t + i * TEAM;
+      if (j < nvec) {
+        float a[VEC], b[VEC], s[VEC], o[VEC];
+        if constexpr (KEEP) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            a[e] = xv[i][e];
+            b[e] = gv[i][e];
+          }
+        } else {
+          load<T, VEC>(xr + j * VEC, a);
+          load<T, VEC>(gr + j * VEC, b);
+        }
+        load<W, VEC>(w + j * VEC, s);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xh = a[e] * r;
+          o[e] = r * (b[e] * s[e] - xh * mg);
+          acc[i][e] = fmaf(b[e], xh, acc[i][e]);
+        }
+        store<T, VEC>(orow + j * VEC, o);
+      }
+    }
+  }
+  float* prow = part + (int64_t(blockIdx.x) * ROWS + team) * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = t + i * TEAM;
+    if (j < nvec) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) prow[j * VEC + e] = acc[i][e];
+    }
+  }
+}
+
+// dscale[c] = sum of part[p][c] over p < parts, in a fixed order: lane y of
+// a (32 columns x 32 lanes) block adds rows y, y + 32, ...; lane 0 then adds
+// the 32 lane sums in order.
+template <typename W>
+__global__ void __launch_bounds__(1024) col_sum_kernel(
+    const float* __restrict__ part, W* __restrict__ out, int parts, int d) {
+  __shared__ float lanes[32][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (c < d)
+    for (int p = threadIdx.y; p < parts; p += 32) acc += part[int64_t(p) * d + c];
+  lanes[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < d) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) sum += lanes[k][threadIdx.x];
+    out[c] = from_f32<W>(sum);
+  }
+}
+
+template <typename T, typename W, int VEC, int TEAM, int NV>
+cudaError_t launch_bwd(const void* x, const void* dy, const void* w, void* dx,
+                       void* dw, float* part, int max_parts, int64_t n, int d,
+                       int64_t x_rs, float eps, cudaStream_t stream) {
+  constexpr int ROWS = NT / TEAM;
+  const int64_t want = (n + ROWS - 1) / ROWS;
+  const int64_t blocks = want < max_parts / ROWS ? want : max_parts / ROWS;
+  if (blocks < 1) return cudaErrorInvalidValue;
+  rmsnorm_bwd_kernel<T, W, VEC, TEAM, NV><<<unsigned(blocks), NT, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const W*>(w), static_cast<T*>(dx), part, n, d, x_rs, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  col_sum_kernel<W><<<unsigned((d + 31) / 32), dim3(32, 32), 0, stream>>>(
+      part, static_cast<W*>(dw), int(blocks * ROWS), d);
+  return cudaGetLastError();
+}
+
+template <typename T, typename W, int VEC>
+cudaError_t bwd_by_width(const void* x, const void* dy, const void* w, void* dx,
+                         void* dw, float* part, int mp, int64_t n, int d,
+                         int64_t x_rs, float eps, cudaStream_t s) {
+  const int per = d / VEC;
+  if (per <= 32)
+    return launch_bwd<T, W, VEC, 32, 1>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+  if (per <= 64)
+    return launch_bwd<T, W, VEC, 32, 2>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+  if (per <= 256)
+    return launch_bwd<T, W, VEC, 128, 2>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+  if (per <= 512)
+    return launch_bwd<T, W, VEC, 128, 4>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+  if (per <= 1024)
+    return launch_bwd<T, W, VEC, 128, 8>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+  if (per <= 2048)
+    return launch_bwd<T, W, VEC, 128, 16>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, typename W>
+cudaError_t bwd_by_alignment(const void* x, const void* dy, const void* w,
+                             void* dx, void* dw, float* part, int mp, int64_t n,
+                             int d, int64_t x_rs, float eps, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = uintptr_t(x) % 16 == 0 && uintptr_t(dy) % 16 == 0 &&
+                   uintptr_t(dx) % 16 == 0 && d % VEC == 0 && x_rs % VEC == 0 &&
+                   (sizeof(W) != sizeof(T) || uintptr_t(w) % 16 == 0);
+  if (vec)
+    return bwd_by_width<T, W, VEC>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+  return bwd_by_width<T, W, 1>(x, dy, w, dx, dw, part, mp, n, d, x_rs, eps, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -211,6 +413,37 @@ int rms_forward(int x_dtype, int w_dtype, const void* x, const void* w,
       return by_alignment<bf16, float>(x, w, out, n, d, x_rs, eps, s);
     case 3:
       return by_alignment<bf16, bf16>(x, w, out, n, d, x_rs, eps, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The gradient of rms_forward. x: n rows of d values (row stride x_rs, as
+// rms_forward); dy and dx: n * d contiguous, x's dtype; w and dw: d values,
+// w_dtype; part: a float32 scratch of max_parts rows of d (max_parts a
+// multiple of 4, at least 4), of which the launch uses at most max_parts
+// rows. Two launches on `stream` (the rows, then the column sums); returns
+// the first cudaError_t (0 = launched); nothing is synchronised.
+int rms_backward(int x_dtype, int w_dtype, const void* x, const void* dy,
+                 const void* w, void* dx, void* dw, float* part, int max_parts,
+                 int64_t n, int d, int64_t x_rs, float eps, void* stream) {
+  if (n <= 0 || d <= 0 || max_parts < 4 || max_parts % 4)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  switch (x_dtype * 2 + w_dtype) {
+    case 0:
+      return bwd_by_alignment<float, float>(x, dy, w, dx, dw, part, max_parts,
+                                            n, d, x_rs, eps, s);
+    case 1:
+      return bwd_by_alignment<float, bf16>(x, dy, w, dx, dw, part, max_parts,
+                                           n, d, x_rs, eps, s);
+    case 2:
+      return bwd_by_alignment<bf16, float>(x, dy, w, dx, dw, part, max_parts,
+                                           n, d, x_rs, eps, s);
+    case 3:
+      return bwd_by_alignment<bf16, bf16>(x, dy, w, dx, dw, part, max_parts,
+                                          n, d, x_rs, eps, s);
     default:
       return cudaErrorInvalidValue;
   }

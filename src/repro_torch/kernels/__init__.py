@@ -3,7 +3,8 @@
 ``rmsnorm`` and ``paged_reloc_copy``. Together they replace every Pallas
 kernel of the reference; ``chip_smoke.py`` builds and runs all three on an
 H100. ``paged_reloc_copy`` builds the arena on the card at every
-table-driven epoch load (``core/device_arena.py``).
+table-driven epoch load (``core/device_arena.py``); ``rmsnorm`` also has a
+backward kernel, which training runs.
 
 Each wrapper counts its own kernel launches (plain-version calls do not
 count); ``launch_counts`` reads the counters of this process and
@@ -11,13 +12,15 @@ count); ``launch_counts`` reads the counters of this process and
 
 
 def launch_counts() -> dict:
-    """This process's kernel launches: one count per kernel, and flash
-    attention's launches per route."""
+    """This process's kernel launches: one count per kernel (rmsnorm's
+    backward apart from its forward), and flash attention's launches per
+    route."""
     from .flash_attention import ops as fa
     from .paged_reloc_copy import ops as prc
     from .rmsnorm import ops as rn
 
     return {"flash_attention": fa.launches, "rmsnorm": rn.launches,
+            "rmsnorm_backward": rn.backward_launches,
             "paged_reloc_copy": prc.launches,
             "flash_routes": dict(fa.launches_by_route)}
 
@@ -28,6 +31,7 @@ def zero_launch_counts() -> None:
     from .paged_reloc_copy import ops as prc
     from .rmsnorm import ops as rn
 
-    fa.launches = fa.launches_non_causal = rn.launches = prc.launches = 0
+    fa.launches = fa.launches_non_causal = prc.launches = 0
+    rn.launches = rn.backward_launches = 0
     for route in fa.launches_by_route:
         fa.launches_by_route[route] = 0

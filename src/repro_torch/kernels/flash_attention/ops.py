@@ -178,11 +178,21 @@ def _launch(q, k, v, causal, window, q_offset):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
-    """(B,Sq,H,hd) x (B,Sk,KV,hd) -> (B,Sq,H,hd) attention, GQA by index."""
+    """(B,Sq,H,hd) x (B,Sk,KV,hd) -> (B,Sq,H,hd) attention, GQA by index.
+
+    The kernel is forward-only, as the reference's is: off the CPU, a call
+    that autograd would have to differentiate raises rather than return a
+    tensor detached from the graph."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, q_offset=q_offset
         )
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention's kernel is forward-only and cannot be "
+            "differentiated: train with impl='chunked', as the reference's "
+            "TrainConfig does")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     return _launch(q, k, v, causal, window, q_offset)

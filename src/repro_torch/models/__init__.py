@@ -1,8 +1,9 @@
-from . import api, common, hybrid, mamba2, moe, specs, transformer
+from . import api, common, hybrid, mamba2, moe, runtime, specs, transformer
 from .api import (
     decode_step,
     forward,
     init_params,
+    loss_fn,
     manifest_refs,
     n_active_params,
     n_params,
@@ -16,11 +17,13 @@ __all__ = [
     "hybrid",
     "mamba2",
     "moe",
+    "runtime",
     "specs",
     "transformer",
     "decode_step",
     "forward",
     "init_params",
+    "loss_fn",
     "manifest_refs",
     "n_active_params",
     "n_params",

@@ -3,6 +3,7 @@
 
     param_specs(cfg)                  -> {name: ParamSpec}   (symbol manifest)
     init_params(cfg, seed, device)    -> {name: tensor}
+    loss_fn(cfg, params, batch)       -> scalar tensor
     forward(cfg, params, batch)       -> (logits, aux)
     prefill(cfg, params, batch)       -> (logits, cache)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
@@ -38,6 +39,13 @@ def init_params(cfg, seed: int = 0, device="cuda"):
 
 def forward(cfg, params, batch, *, impl="kernel"):
     return _mod(cfg).forward(cfg, params, batch, impl=impl)
+
+
+def loss_fn(cfg, params, batch, *, impl="chunked", aux_coef=None):
+    """The family's training loss; ``aux_coef`` None takes its default
+    (0.01 for the transformer families, 0 for mamba2 and the hybrid)."""
+    kw = {} if aux_coef is None else {"aux_coef": aux_coef}
+    return _mod(cfg).loss_fn(cfg, params, batch, impl=impl, **kw)
 
 
 def prefill(cfg, params, batch, *, impl="kernel", cache_len=None):

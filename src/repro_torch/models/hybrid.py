@@ -24,6 +24,7 @@ from . import mamba2
 from .common import (
     apply_rope,
     attention,
+    cross_entropy,
     decode_attention,
     host_ints,
     mlp,
@@ -108,18 +109,20 @@ def _shared_block(cfg, params, x, x0, sin, cos, *, impl, collect_kv=False):
 
 
 def _mamba_group(cfg, params, x, lo, hi, *, collect_state=False):
-    """Mamba layers [lo, hi) of the stacked params; with ``collect_state``
-    also their stacked (conv states, final SSM states)."""
+    """Mamba layers [lo, hi) of the stacked params, each under the remat
+    policy while autograd records; with ``collect_state`` also their
+    stacked (conv states, final SSM states)."""
     stacked = mamba2._stacked(params)
+    block = mamba2.remat_block(cfg)
     convs, ssms = [], []
     for i in range(lo, hi):
         p = mamba2.layer(stacked, i)
         if collect_state:
-            x, final, conv = mamba2.mamba_block(cfg, p, x, return_state=True)
+            x, final, conv = block(cfg, p, x, return_state=True)
             convs.append(conv)
             ssms.append(final)
         else:
-            x = mamba2.mamba_block(cfg, p, x)
+            x = block(cfg, p, x)
     if collect_state:
         return x, (torch.stack(convs), torch.stack(ssms))
     return x, None
@@ -135,6 +138,12 @@ def forward(cfg, params, batch, *, impl: str = "kernel"):
         x, _ = _mamba_group(cfg, params, x, lo, hi)
     return mamba2.logits_fn(cfg, params, x), torch.zeros((), dtype=torch.float32,
                                                          device=x.device)
+
+
+def loss_fn(cfg, params, batch, *, impl: str = "chunked", aux_coef=0.0):
+    """Mean next-token cross entropy (no aux loss, as in the reference)."""
+    logits, _ = forward(cfg, params, batch, impl=impl)
+    return cross_entropy(logits, batch["labels"])
 
 
 # ------------------------------------------------------------------ decode

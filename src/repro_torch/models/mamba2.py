@@ -17,7 +17,8 @@ float32 throughout.
 
 Departures from the reference that do not change results:
 
-* the layer stack is a plain Python loop (the reference's ``lax.scan``);
+* the layer stack is a plain Python loop (the reference's ``lax.scan``),
+  each layer under the config's remat policy while autograd records;
 * ``decode_step`` writes the conv and SSM states into the cache IN PLACE
   and returns a dict holding the same, updated tensors;
 * the cache's ``pos`` is a Python int, or a tuple of ints, one per batch
@@ -29,7 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import rms_norm
+from .common import cross_entropy, rms_norm
+from .runtime import remat_wrap
 from .specs import ParamSpec, torch_dtype
 
 NEG_INF = -(2.0**30)
@@ -268,6 +270,12 @@ def layer(stacked: dict, i: int) -> dict:
     return {n: a[i] for n, a in stacked.items()}
 
 
+def remat_block(cfg):
+    """``mamba_block`` under the config's remat policy while autograd
+    records (training), else ``mamba_block`` itself."""
+    return remat_wrap(mamba_block, cfg) if torch.is_grad_enabled() else mamba_block
+
+
 def embed(params, tokens):
     return params["embed/tokens"][tokens.long()]
 
@@ -284,10 +292,18 @@ def forward(cfg, params, batch, *, impl: str = "kernel"):
     is taken for the uniform API; mamba2 has no attention."""
     x = embed(params, batch["tokens"])
     stacked = _stacked(params)
+    block = remat_block(cfg)
     for i in range(cfg.num_layers):
-        x = mamba_block(cfg, layer(stacked, i), x)
+        x = block(cfg, layer(stacked, i), x)
     return logits_fn(cfg, params, x), torch.zeros((), dtype=torch.float32,
                                                   device=x.device)
+
+
+def loss_fn(cfg, params, batch, *, impl: str = "chunked", aux_coef=0.0):
+    """Mean next-token cross entropy (an SSM has no aux loss; ``impl`` and
+    ``aux_coef`` are taken for the uniform API, as in the reference)."""
+    logits, _ = forward(cfg, params, batch, impl=impl)
+    return cross_entropy(logits, batch["labels"])
 
 
 def cache_spec(cfg, batch: int, seq_len: int):
@@ -326,8 +342,9 @@ def prefill(cfg, params, batch, *, impl: str = "kernel", cache_len=None):
     x = embed(params, tokens)
     stacked = _stacked(params)
     cache = init_cache(cfg, B, S, x.device)
+    block = remat_block(cfg)
     for i in range(cfg.num_layers):
-        x, final, conv = mamba_block(cfg, layer(stacked, i), x, return_state=True)
+        x, final, conv = block(cfg, layer(stacked, i), x, return_state=True)
         cache["conv"][i] = conv
         cache["ssm"][i] = final
     cache["pos"] = S - 1

@@ -34,6 +34,7 @@ from . import moe
 from .common import (
     apply_rope,
     attention,
+    cross_entropy,
     decode_attention,
     host_ints,
     layer_norm,
@@ -41,6 +42,7 @@ from .common import (
     rms_norm,
     rope_angles,
 )
+from .runtime import remat_wrap
 from .specs import ParamSpec, torch_dtype
 
 # --------------------------------------------------------------------------
@@ -273,18 +275,21 @@ def run_stack(cfg, params, prefix, x, sin, cos, *, impl, enc_out=None,
               on_kv=None):
     """Run a layer stack as a plain loop, layer i with its own window (the
     encoder's ``enc`` stack: full causal attention in every layer).
-    Returns (x, summed aux loss, a float32 scalar tensor).
+    Returns (x, summed aux loss, a float32 scalar tensor). While autograd
+    records, each layer runs under the config's remat policy
+    (``runtime.remat_wrap``), as the reference's stack does.
 
     ``on_kv(i, *kv)``, when given, receives each layer's keys and values
     (and a decoder layer's cross keys and values); prefill writes them into
     the cache."""
     stacked = _stacked_params(params, prefix)
     windows = [0] * cfg.encoder_layers if prefix == "enc" else _layer_windows(cfg)
+    block = remat_wrap(_block, cfg) if torch.is_grad_enabled() else _block
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(windows):
         p_i = {n: a[i] for n, a in stacked.items()}
-        x, aux_i, kv = _block(cfg, p_i, x, sin, cos, window=window, impl=impl,
-                              enc_out=enc_out)
+        x, aux_i, kv = block(cfg, p_i, x, sin, cos, window=window, impl=impl,
+                             enc_out=enc_out)
         if aux_i is not None:
             aux = aux + aux_i
         if on_kv is not None:
@@ -336,6 +341,15 @@ def forward(cfg, params, batch, *, impl: str = "kernel"):
     x, aux = run_stack(cfg, params, _stack_prefix(cfg), x, sin, cos, impl=impl,
                        enc_out=enc_out)
     return logits_fn(cfg, params, x), aux
+
+
+def loss_fn(cfg, params, batch, *, impl: str = "chunked", aux_coef=0.01):
+    """Mean next-token cross entropy plus ``aux_coef`` x the MoE aux loss
+    (0 for a dense model). Batch keys: tokens, labels (B, S), and frames
+    for an encoder-decoder. Trains with ``impl="chunked"``: the flash
+    kernel is forward-only."""
+    logits, aux = forward(cfg, params, batch, impl=impl)
+    return cross_entropy(logits, batch["labels"]) + aux_coef * aux
 
 
 def init_cache(cfg, batch: int, seq_len: int, device, *, cross_len=None):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from repro_torch.configs import get_config
+from repro_torch.models.transformer import _layer_windows
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -98,3 +99,23 @@ def test_rms_mix_counts_every_launch_of_the_ssm_paths(smoke):
         assert sum(mix.values()) == per * smoke.NEW
         prefill = {s: n for s, n in mix.items() if s[0] == smoke.BATCH * smoke.PROMPT}
         assert sum(prefill.values()) == per - 1      # the final norm is on B rows
+
+
+def test_gemma3_training_step_model_flops(smoke):
+    """Phase 11's model flops a step (gemma3-1b, 2 x 4096 tokens): 6 x
+    999,826,048 parameters x 8,192 tokens, plus attention at hd 256 with 4
+    heads, x 3 for forward and backward, over 4 global layers (4096 x 4097
+    / 2 visible pairs a sequence) and 22 windowed ones (window 512:
+    512 x 513 / 2 + 3584 x 512 pairs)."""
+    cfg = get_config("gemma3-1b")
+    assert _layer_windows(cfg).count(0) == 4
+    pairs = 4 * (4096 * 4097 // 2) + 22 * (512 * 513 // 2 + 3584 * 512)
+    want = 6.0 * 999_826_048 * 8192 + 3 * 4.0 * 256 * 4 * 2 * pairs
+    assert smoke.train_model_flops(cfg, 2, 4096) == want
+    assert round(want / 1e13, 3) == 5.103
+
+
+def test_attention_pairs_of_a_window(smoke):
+    brute = lambda s, w: sum(min(q + 1, w) if w else q + 1 for q in range(s))
+    for s, w in ((16, 0), (16, 4), (16, 16), (16, 40), (4096, 512)):
+        assert smoke.attention_pairs(s, w) == brute(s, w)

@@ -211,6 +211,125 @@ def test_rmsnorm_kernel_reads_strided_rows_on_card(cuda, dt):
     assert ((got.float() - want).abs() - rtol * want.abs()).max().item() <= atol
 
 
+# backward shapes: the sweep's odd widths, gemma3-1b's training shapes
+# (small row counts), zamba2's widest norm, and f32 rows past NV = 4
+RMS_BWD_CASES = [(5, 7), (4, 300), (37, 128), (64, 1152), (128, 256), (3, 5, 1152),
+                 (16, 2048), (8, 7168), (1, 8)]
+
+
+def _bwd_inputs(cuda, shape, dt, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda).to(dt)
+    s = (1 + 0.5 * torch.randn(shape[-1], generator=g, device=cuda)).to(dt)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dt)
+    return x, s, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RMS_BWD_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel_matches_plain_on_card(cuda, shape, dt):
+    x, s, dy = _bwd_inputs(cuda, shape, dt)
+    n = rn.backward_launches
+    dx, ds = rn._launch_backward(x, s, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert rn.backward_launches == n + 1
+    want_dx, want_ds = rn.rmsnorm_backward_plain(x, s, dy)
+    assert dx.dtype == dt and ds.dtype == dt and dx.shape == x.shape
+    atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (3e-2, 2.0**-7)
+    excess = (dx.float() - want_dx.float()).abs() - rtol * want_dx.float().abs()
+    assert excess.max().item() <= atol
+    # dscale: a sum over the rows, against the float32 plain sum, within
+    # 1e-4 of its largest value (a column's sum may cancel to near 0), and
+    # bf16's rounding of each value
+    f32 = rn.rmsnorm_backward_plain(x.float(), s.float(), dy.float())[1]
+    tol = 1e-4 * f32.abs().max() + (2.0**-8 * f32.abs() if dt == torch.bfloat16 else 0)
+    assert ((ds.float() - f32).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_reads_strided_rows_on_card(cuda, dt):
+    full, s, _ = _bwd_inputs(cuda, (4, 16, 1152), dt, seed=2)
+    x = full[:, -1:, :]
+    dy = torch.randn(x.shape, device=cuda).to(dt)
+    dx, ds = rn._launch_backward(x, s, dy, 1e-6)
+    want_dx, want_ds = rn.rmsnorm_backward_plain(x, s, dy)
+    atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (3e-2, 2.0**-7)
+    for got, want in ((dx, want_dx), (ds, want_ds)):
+        excess = (got.float() - want.float()).abs() - rtol * want.float().abs()
+        assert excess.max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 1152), (32768, 256), (5, 7)])
+def test_rmsnorm_backward_dscale_is_the_same_bits_on_every_call(cuda, shape):
+    x, s, dy = _bwd_inputs(cuda, shape, torch.bfloat16, seed=3)
+    a = rn._launch_backward(x, s, dy, 1e-6)
+    b = rn._launch_backward(x, s, dy, 1e-6)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    s32 = s.float()
+    c = rn._launch_backward(x, s32, dy, 1e-6)[1]
+    assert torch.equal(c, rn._launch_backward(x, s32, dy, 1e-6)[1])
+
+
+@pytest.mark.cuda
+def test_rmsnorm_under_grad_runs_both_kernels_and_no_grad_stays_lean(cuda):
+    x, s, dy = _bwd_inputs(cuda, (6, 256), torch.bfloat16, seed=4)
+    n, nb = rn.launches, rn.backward_launches
+    with torch.no_grad():
+        y0 = rn.rmsnorm(x, s.clone().requires_grad_())
+    assert y0.grad_fn is None and (rn.launches, rn.backward_launches) == (n + 1, nb)
+    xg, sg = x.clone().requires_grad_(), s.clone().requires_grad_()
+    y = rn.rmsnorm(xg, sg)
+    assert y.grad_fn is not None
+    gx, gs = torch.autograd.grad(y, (xg, sg), dy)
+    assert (rn.launches, rn.backward_launches) == (n + 2, nb + 1)
+    want = rn.rmsnorm_backward_plain(x, s, dy)
+    assert torch.equal(gx, rn._launch_backward(x, s, dy, 1e-6)[0])
+    assert ((gs.float() - want[1].float()).abs() <= 3e-2 + 2.0**-7 * want[1].float().abs()).all()
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_grad_on_card(cuda):
+    q = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn((1, 64, 1, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="impl='chunked'"):
+        fa.flash_attention(q, k, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-370m"])
+def test_smoke_training_step_gradients_on_card_match_cpu(cuda, arch):
+    """A float32 smoke training step on the card (rmsnorm forward and
+    backward kernels, chunked attention) against the CPU's (plain
+    versions, which the CPU tests hold against the JAX package): the loss
+    and every gradient within 1e-4 of the gradient's largest magnitude;
+    each norm of the step launched its backward once."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cpu = models.init_params(cfg, 0, "cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 17), dtype=np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {n: t.to(dev).requires_grad_() for n, t in cpu.items()}
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        nb = rn.backward_launches
+        loss = models.loss_fn(cfg, p, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        out[str(dev)] = (loss.item(), {n: g.cpu() for n, g in zip(p, grads)},
+                         rn.backward_launches - nb)
+    (l_cpu, g_cpu, nb_cpu), (l_gpu, g_gpu, nb_gpu) = out["cpu"], out[str(cuda)]
+    assert nb_cpu == 0 and nb_gpu > 0
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for n, g in g_cpu.items():
+        scale = max(g.abs().max().item(), 1e-30)
+        assert (g_gpu[n] - g).abs().max().item() <= 1e-4 * scale, n
+
+
 # ----------------------------------------------------- paged relocation copy
 # the reference's cases (tests/test_kernels.py): (pages, copies)
 PAGED_CASES = [(4, 2), (64, 64), (128, 37)]
@@ -334,6 +453,7 @@ def test_run_traffic_on_card_matches_cpu_with_exact_launches(cuda, tmp_path):
         assert st["launches"] == {
             "flash_attention": layers * adm,
             "rmsnorm": (4 * layers + 1) * (adm + steps),
+            "rmsnorm_backward": 0,
             "paged_reloc_copy": 1,
             "flash_routes": {"wgmma": 0, "simt": layers * adm},
         }, st

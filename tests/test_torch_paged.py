@@ -19,7 +19,8 @@ from repro.kernels.paged_reloc_copy import paged_reloc_copy_ref
 from repro.kernels.paged_reloc_copy import ops as ref_ops
 from repro.link import Workspace as RefWorkspace
 from repro.serve import ServeEngine as RefServeEngine
-from repro_torch.core import EpochCache, RelocationTable, compile_page_table
+from repro_torch.core import EpochCache, RelocationTable, RelocType, compile_page_table
+from repro_torch.core import np_dtype
 from repro_torch.core.errors import AdoptDeadlineError
 from repro_torch.kernels.paged_reloc_copy import ops as prc
 from repro_torch.link import Workspace
@@ -182,6 +183,30 @@ def test_device_load_pads_with_zeros_and_compiles_a_missing_page_table(ref_root)
     for s in table.slots().values():
         covered[s.offset:s.offset + s.nbytes] = True
     assert not got.arena.numpy()[~covered].any()
+
+
+def test_device_load_skips_zero_init_rows_and_keeps_a_custom_initializer(ref_root):
+    """The weak ``missing`` symbol is an INIT row of a slot: with the zeros
+    initializer the device load leaves it out (the arena is zeros already)
+    and its bytes still equal the host image's; with another initializer
+    the row is applied."""
+    from repro_torch.core.device_arena import rows_to_apply
+
+    port = Workspace.open(ref_root.root, epoch_cache=EpochCache())
+    table = port.load("app", strategy="stable").table
+    rows = table.meta["host_rows"]
+    init = [i for i in rows if int(table.rows["type"][i]) == int(RelocType.INIT)]
+    assert init and [table.name_at(table.rows["symbol_name"][i]) for i in init] == ["missing"]
+    assert rows_to_apply(port.executor, table, rows) == [i for i in rows if i not in init]
+    got = port.load("app", strategy="stable", device="cpu")
+    assert _bytes(got.tensors["missing"]) == bytes(8)
+    assert _slot_bytes(got) == _slot_bytes(port.load("app", strategy="stable"))
+
+    sevens = lambda name, shape, dtype: np.full(shape, 7, np.dtype(np_dtype(dtype)))
+    other = Workspace.open(ref_root.root, epoch_cache=EpochCache(), initializer=sevens)
+    assert rows_to_apply(other.executor, table, rows) == list(rows)
+    img = other.load("app", strategy="stable", device="cpu")
+    assert _bytes(img.tensors["missing"]) == np.full(4, 7, np_dtype("bfloat16")).tobytes()
 
 
 def test_device_load_after_an_interposition_edit(ref_root):
