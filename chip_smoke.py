@@ -137,7 +137,22 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    and DIRECT after; the checkpoint's bytes, loaded back on the host, must
    equal the trainer's snapshot and the restart's arena the host image;
    step 3's loss must be the same bits before and after the restart, and
-   every loss finite. One more step is profiled.
+   every loss finite. One more step is profiled;
+12. the multi-device layer on one card: gemma3-1b at its published widths
+   on ``make_local_mesh()`` (the production axis names at 1 x 1, over a
+   one-rank NCCL group), in a fresh Workspace with one publish. Serving:
+   ``build_step``'s prefill (flash kernel) of 4 x 1024 tokens and 31
+   decode steps on the arena of a stable load, against the meshless
+   ``models.prefill`` / ``decode_step`` on the same params: the logits the
+   same bits, the tokens equal, launches exactly 26 flash (wgmma) and 105
+   rmsnorm a prefill and a step. Training: a meshless ``Trainer`` and one
+   with ``mesh=make_local_mesh()``, 3 steps of 2 x 4096 tokens each, no
+   checkpoint: the same loss bits; the mesh run's launches exactly 1 paged
+   copy, 209 rmsnorm forward and 105 backward a step, 0 flash; its params
+   DTensors over views of its arena, which holds the trained values. Then
+   ``int8_allreduce_mean`` over the group equals ``dequantize_int8(
+   quantize_int8(x))``. The step, prefill and decode step times are
+   printed beside the meshless ones (DTensor's host cost).
 
 ``--phases`` runs only the listed phases (the build always runs) and prints
 no result lines: it is for development on the card.
@@ -153,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -225,6 +241,10 @@ HYBRID_FLASH, HYBRID_RMS = 14, 191      # 2 x 81 + 2 x 14 + 1
 TRAIN_SEQ, TRAIN_BATCH = 4096, 2
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 3, 4
 TRAIN_OPT = {"peak_lr": 1e-4, "warmup_steps": 2, "decay_steps": 5}
+# the multi-device layer on one card (phase 12): make_local_mesh(), the
+# static batch's prompts then this many decode steps, and this many
+# training steps at the training shape, each beside its meshless run
+MESH_DECODE, MESH_TRAIN_STEPS = 31, 3
 # the kernel path's loss and gradient errors against a float32 plain-norm
 # run: at most this times the bf16 plain-norm run's
 GRAD_RATIO = 1.5
@@ -2467,6 +2487,228 @@ def train_path() -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 12
+def _timed_cuda(fn):
+    """(fn's result, its wall seconds up to a synchronised card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def mesh_serve(cfg, mesh, params) -> dict:
+    """Phase 12's serving half: ``build_step``'s prefill (impl="kernel")
+    and MESH_DECODE decode steps on ``mesh``, against the meshless
+    ``models.prefill`` and ``decode_step`` on the same arena params: the
+    same logits bits, the same tokens, exact launch counts; each timed."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.steps import build_step, place_tree
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=g,
+                           device="cuda", dtype=torch.int32)
+    bundle = build_step(cfg, ShapeConfig("chip-p", PROMPT, BATCH, "prefill"), mesh,
+                        impl="kernel")
+    prefill = bundle.jitted
+    decode = build_step(cfg, ShapeConfig("chip-d", PROMPT, BATCH, "decode"), mesh).jitted
+    placed = place_tree(params, mesh, bundle.shardings["params"])   # once, no copy
+
+    def mesh_run():
+        logits, cache = prefill(placed, {"tokens": tokens})
+        tok, toks, steps = torch.argmax(logits.to_local()[:, -1:], -1).to(torch.int32), [], []
+        for _ in range(MESH_DECODE):
+            (tok, cache), dt = _timed_cuda(lambda: decode(placed, cache, tok))
+            steps.append(dt)
+            toks.append(tok.to_local())
+        return logits.to_local(), torch.cat(toks, 1), steps
+
+    def plain_run():
+        logits, cache = models.prefill(cfg, params, {"tokens": tokens}, impl="kernel")
+        tok, toks, steps = torch.argmax(logits[:, -1:], -1).to(torch.int32), [], []
+        for _ in range(MESH_DECODE):
+            def step():
+                lg, c = models.decode_step(cfg, params, cache, tok)
+                return torch.argmax(lg[:, -1:], -1).to(torch.int32), c
+            (tok, cache), dt = _timed_cuda(step)
+            steps.append(dt)
+            toks.append(tok)
+        return logits, torch.cat(toks, 1), steps
+
+    with torch.no_grad():
+        zero_launch_counts()
+        (m_logits, m_toks, m_steps), mesh_s = _timed_cuda(mesh_run)
+        got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+        (p_logits, p_toks, p_steps), plain_s = _timed_cuda(plain_run)
+        # prefill alone, timed again now that both paths ran once
+        _, mesh_prefill_s = _timed_cuda(lambda: prefill(placed, {"tokens": tokens}))
+        _, plain_prefill_s = _timed_cuda(
+            lambda: models.prefill(cfg, params, {"tokens": tokens}, impl="kernel"))
+    want = {"flash_attention": FLASH_PER_PREFILL,
+            "rmsnorm": RMS_PER_STEP * (1 + MESH_DECODE), "rmsnorm_backward": 0,
+            "paged_reloc_copy": 0, "non_causal": 0,
+            "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
+    log(f"{cfg.name} mesh serving: launches {got}, expected {want}")
+    if got != want:
+        fail(f"{cfg.name} mesh serving: kernel launches {got} != {want}")
+    if not bool(torch.isfinite(m_logits).all()):
+        fail(f"{cfg.name} mesh serving: prefill logits are not finite")
+    if not torch.equal(m_logits, p_logits):
+        fail(f"{cfg.name} mesh serving: prefill logits differ from the meshless run's "
+             f"(max {(m_logits.float() - p_logits.float()).abs().max().item()})")
+    if not torch.equal(m_toks, p_toks):
+        fail(f"{cfg.name} mesh serving: decode tokens differ from the meshless run's")
+    step_s, plain_step_s = statistics.median(m_steps), statistics.median(p_steps)
+    out = {"launches": got, "decode_steps": MESH_DECODE, "prefill_s": mesh_prefill_s,
+           "plain_prefill_s": plain_prefill_s, "decode_step_s": step_s,
+           "plain_decode_step_s": plain_step_s,
+           "prefill_overhead_s": mesh_prefill_s - plain_prefill_s,
+           "decode_step_overhead_s": step_s - plain_step_s,
+           "run_s": mesh_s, "plain_run_s": plain_s}
+    log(f"{cfg.name} mesh serving: logits the same bits and {MESH_DECODE} x {BATCH} "
+        "tokens equal to the meshless run's; " + json.dumps(
+            {k: v for k, v in out.items() if k != "launches"}))
+    return out
+
+
+def mesh_train(cfg, mesh, root) -> dict:
+    """Phase 12's training half: a meshless ``Trainer`` and one on ``mesh``
+    over the same published world, MESH_TRAIN_STEPS steps each and no
+    checkpoint: the same loss bits; the mesh run's launches exact and its
+    params DTensors over views of its arena, trained in place."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    shape = ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(steps=MESH_TRAIN_STEPS, checkpoint_every=10**9,
+                       opt=OptConfig(**TRAIN_OPT))
+    runs = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        tr = Trainer(root, cfg, shape, tcfg, device="cuda", mesh=m)
+        zero_launch_counts()
+        res, wall = _timed_cuda(tr.run)
+        got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+        runs[name] = {"losses": res.losses, "step_s": res.step_s, "wall_s": wall,
+                      "launches": got, "start": res.startup_stats[0]}
+        if m is not None:
+            arena = tr.image.arena
+            lo, hi = arena.data_ptr(), arena.data_ptr() + arena.numel()
+            outside = [n for n, p in tr.params.items()
+                       if not lo <= p.to_local().data_ptr() < hi]
+            if outside:
+                fail(f"{cfg.name} mesh training: params {outside[:3]} are not views of "
+                     "the arena")
+            slot = tr.image.table.slots()["final_norm/scale"]
+            view = arena[slot.offset:slot.offset + slot.nbytes]
+            local = tr.params["final_norm/scale"].to_local()
+            if not torch.equal(view, local.detach().reshape(-1).view(torch.uint8)):
+                fail(f"{cfg.name} mesh training: the arena does not hold the trained params")
+        del tr
+        torch.cuda.empty_cache()
+    per_step = train_rms_launches(cfg)
+    want = {"flash_attention": 0, "rmsnorm": per_step["forward"] * MESH_TRAIN_STEPS,
+            "rmsnorm_backward": per_step["backward"] * MESH_TRAIN_STEPS,
+            "paged_reloc_copy": 1, "non_causal": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
+    got = runs["mesh"]["launches"]
+    log(f"{cfg.name} mesh training: losses {runs['mesh']['losses']} (meshless "
+        f"{runs['meshless']['losses']}); launches {got}, expected {want}")
+    if got != want:
+        fail(f"{cfg.name} mesh training: kernel launches {got} != {want}")
+    if runs["mesh"]["losses"] != runs["meshless"]["losses"]:
+        fail(f"{cfg.name} mesh training: losses differ from the meshless trainer's")
+    if not all(map(math.isfinite, runs["mesh"]["losses"])):
+        fail(f"{cfg.name} mesh training: a loss is not finite")
+    steady = {k: statistics.median(r["step_s"][1:]) for k, r in runs.items()}
+    out = {"launches": got, "launches_per_step": per_step, "runs": runs,
+           "step_s": steady["mesh"], "plain_step_s": steady["meshless"],
+           "step_overhead_s": steady["mesh"] - steady["meshless"],
+           "first_step_s": runs["mesh"]["step_s"][0],
+           "plain_first_step_s": runs["meshless"]["step_s"][0]}
+    log(f"{cfg.name} mesh training: the same loss bits as the meshless trainer; params "
+        "are views of the arena, trained in place; " + json.dumps(
+            {k: out[k] for k in ("step_s", "plain_step_s", "step_overhead_s",
+                                 "first_step_s", "plain_first_step_s")}))
+    return out
+
+
+def mesh_int8() -> dict:
+    """``int8_allreduce_mean`` over the one-rank NCCL group equals
+    ``dequantize_int8(quantize_int8(x))`` on the card, bit for bit."""
+    import torch
+
+    from repro_torch.dist.compression import (dequantize_int8, int8_allreduce_mean,
+                                              quantize_int8)
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((1024, 1152), generator=g, device="cuda")
+    got = int8_allreduce_mean(x)
+    want = dequantize_int8(*quantize_int8(x))
+    if not torch.equal(got, want):
+        fail(f"int8_allreduce_mean differs from dequantize(quantize(x)) by "
+             f"{(got - want).abs().max().item()}")
+    log("int8_allreduce_mean over the one-rank NCCL group equals "
+        "dequantize_int8(quantize_int8(x)) bit for bit")
+    return {"shape": list(x.shape), "equal": True}
+
+
+def mesh_path() -> dict:
+    """Phase 12: gemma3-1b at its published widths through the multi-device
+    layer on ``make_local_mesh()`` (a one-rank NCCL group) in a fresh
+    Workspace: one publish; the serving check on the arena of a stable
+    load; the meshless and the mesh ``Trainer``; the int8 all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import ensure_process_group, make_local_mesh
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_config(ARCH)
+    ensure_process_group("local", "cuda")
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    try:
+        mesh = make_local_mesh()
+        tr = Trainer(root, cfg, ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                     TrainConfig(opt=OptConfig(**TRAIN_OPT)), device="cuda")
+        t0 = time.perf_counter()
+        tr.publish(models.init_params(cfg, 0, "cuda"))
+        publish_s = time.perf_counter() - t0
+        image = tr.ws.load(tr.app_name, strategy="stable", device="cuda")
+        params = {n: image.tensors[n] for n in models.param_specs(cfg)}
+        log(f"{cfg.name} mesh: published {tr.app_name} in {publish_s:.1f} s; mesh "
+            f"{tuple(mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}")
+        del tr
+        serve = mesh_serve(cfg, mesh, params)
+        del params, image
+        torch.cuda.empty_cache()
+        train = mesh_train(cfg, mesh, root)
+        int8 = mesh_int8()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {"publish_s": publish_s, "serve": serve, "train": train, "int8": int8,
+            "launches": {k: serve["launches"][k] + train["launches"][k]
+                         for k in ("flash_attention", "rmsnorm", "rmsnorm_backward",
+                                   "paged_reloc_copy", "non_causal")}
+            | {"flash_routes": serve["launches"]["flash_routes"]}}
+
+
 def main() -> None:
     import argparse
 
@@ -2545,6 +2787,8 @@ def main() -> None:
         timed(10, "hybrid", ssm_path, HYBRID_ARCH, HYBRID_FLASH, HYBRID_RMS)
     if phase(11):
         timed(11, "train", train_path)
+    if phase(12):
+        timed(12, "mesh", mesh_path)
     detail["empty_profiles"] = EMPTY_PROFILES
     detail["total_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -2565,7 +2809,9 @@ def main() -> None:
              f"{SSM_ARCH} serve_loop": detail["ssm"]["serve_loop"]["launches"],
              HYBRID_ARCH: detail["hybrid"]["launches"],
              f"{HYBRID_ARCH} serve_loop": detail["hybrid"]["serve_loop"]["launches"],
-             "train": detail["train"]["launches"]}
+             "train": detail["train"]["launches"],
+             "mesh serve": detail["mesh"]["serve"]["launches"],
+             "mesh train": detail["mesh"]["train"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     kernels[0]["non_causal_by_path"] = {p: c.get("non_causal", 0) for p, c in paths.items()}
     for k in kernels:

@@ -7,10 +7,13 @@ form can be materialized at end_mgmt and *loaded* at job start.
 
 Keys are content hashes over (program key, mesh key, world hash). This
 copy keeps the in-memory half of the reference package's cache only: the
-reference serializes XLA executables to disk, which has no counterpart in
-the PyTorch port yet, so every miss compiles and is recorded as
-``"compiled"`` in the stats (benchmarks stay honest). ``Workspace``
-constructs one so the session API keeps its shape.
+reference serializes AOT-compiled XLA executables to disk, and the port's
+steps run eagerly (the multi-device layer included: ``launch/steps.py``
+builds placed steps, not compiled ones), so there is nothing to
+serialize; every miss compiles and is recorded as ``"compiled"`` in the
+stats (benchmarks stay honest). The natural thing for the AOT half to
+cache is a captured CUDA graph of a step, which waits for ROADMAP Queue B2
+item 3. ``Workspace`` constructs one so its API keeps its shape.
 """
 
 from __future__ import annotations

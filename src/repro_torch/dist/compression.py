@@ -1,11 +1,26 @@
-"""Framed byte codec used by the arena store.
+"""Compression for the distributed tier: int8 gradient quantization and
+the byte-level transfer codec used by the arena store — the port of the
+reference package's ``dist/compression.py``.
 
-``encode_bytes``/``decode_bytes`` wrap raw blob bytes in a small
-self-describing frame so store transfers can pick a codec per blob and
-always decode on the other side. Codecs: ``none`` (identity), ``rle``
-(byte run-length, good for zero-padded arena images), ``zlib`` (general).
-Every encoder falls back to a ``none`` frame when the codec is unavailable
-or would *grow* the payload, so the knob is safe to leave on everywhere.
+* **Int8 gradient compression** — symmetric per-tensor quantization and an
+  all-gather-based compressed mean that stands in for an all-reduce. The
+  quantization grid is symmetric around zero with 127 positive steps, so
+  zero is exact and the roundtrip error is bounded by half a grid step
+  (scale/2). ``int8_allreduce_mean`` moves int8 codes and one float32
+  scale per rank instead of float32 values: a 4x traffic cut. The codes
+  and scale are the reference's bits on the same input (float32
+  arithmetic, round half to even). The reference's collective is
+  ``lax.all_gather`` over a named axis; here it is
+  ``torch.distributed.all_gather_into_tensor`` over a process group
+  (gloo on the CPU, NCCL on the card).
+
+* **Framed byte codec** — ``encode_bytes``/``decode_bytes`` wrap raw blob
+  bytes in a small self-describing frame so store transfers can pick a
+  codec per blob and always decode on the other side. Codecs: ``none``
+  (identity), ``rle`` (byte run-length, good for zero-padded arena
+  images), ``zlib`` (general). Every encoder falls back to a ``none``
+  frame when the codec is unavailable or would *grow* the payload, so the
+  knob is safe to leave on everywhere.
 
 Frame layout (little-endian)::
 
@@ -18,14 +33,47 @@ Frame layout (little-endian)::
 ``decode_bytes`` validates magic, version, codec id and the decoded
 length; any mismatch raises :class:`CodecError` — the store treats that
 exactly like a content-hash mismatch (quarantine, never admit).
-
-This is the byte half of the reference package's ``dist/compression.py``,
-frame for frame; the int8 gradient half is not ported yet.
 """
 
 from __future__ import annotations
 
 import struct
+
+
+_EPS = 1e-30  # all-zero tensors: avoid 0/0; q stays exactly 0
+
+
+def quantize_int8(x):
+    """x -> (int8 codes, 0-d float32 scale); codes * scale ~= x to scale/2."""
+    import torch
+
+    xf = x.float()
+    amax = xf.abs().max()
+    scale = torch.clamp(amax, min=_EPS) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8(q, scale):
+    return q.float() * scale
+
+
+def int8_allreduce_mean(x, group=None):
+    """Compressed mean of ``x`` over the ranks of ``group`` (the default
+    group when None): each rank quantizes its tensor, all-gathers codes
+    and scales, and dequantizes and averages locally — wire traffic is
+    about x.nbytes/4 per hop against a float32 all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    q, s = quantize_int8(x)
+    n = dist.get_world_size(group)
+    qs = torch.empty((n * q.numel(),), dtype=torch.int8, device=q.device)
+    ss = torch.empty((n,), dtype=torch.float32, device=q.device)
+    dist.all_gather_into_tensor(qs, q.reshape(-1), group=group)
+    dist.all_gather_into_tensor(ss, s.reshape(1), group=group)
+    vals = qs.view((n,) + tuple(q.shape)).float() * ss.reshape((n,) + (1,) * q.dim())
+    return torch.mean(vals, dim=0)
 
 
 # ------------------------------------------------------------- byte codec

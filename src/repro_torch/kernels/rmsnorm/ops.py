@@ -24,15 +24,27 @@ recomputes the row's ``rsqrt`` from ``x``; ``dscale`` is summed without
 atomics, so it is the same bits on every call. ``backward_launches``
 counts its calls (each is two kernels: the rows, then the column sums).
 Under ``no_grad`` and ``inference_mode`` the forward call is the lean one
-above. ``rmsnorm_backward_plain`` is the closed-form gradient in float32
-plain torch, for the tests and ``chip_smoke.py``.
+above.
+
+DTensors (a step on a device mesh, ``launch/steps.py``) are unwrapped with
+``local_map``, so the kernel only ever sees each device's local rows. The
+kernel needs a row whole: rows may stay sharded, but a sharded feature
+dimension (or a pending partial sum) is redistributed to whole rows first.
+``scale`` is replicated; its gradient is a partial sum over the mesh axes
+that shard the rows. ``rmsnorm_backward_plain`` is the closed-form gradient in float32
+plain torch, for the tests and ``chip_smoke.py``; on the CPU under grad,
+``rmsnorm`` runs the plain forward and this backward as one autograd node
+(``_RMSNormPlain``), the same graph as the card's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from repro_torch.dist.context import is_dtensor
 
 SOURCE = "rmsnorm.cu"
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -171,12 +183,60 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dscale, None
 
 
+class _RMSNormPlain(torch.autograd.Function):
+    """The plain forward and the closed-form plain backward as one autograd
+    node, the CPU's counterpart of ``_RMSNorm``: a norm's gradient reaches
+    ``x`` as one term, as the kernel's does, so the gradient sums of a
+    step are the same whether the norm runs under ``local_map`` (on a
+    mesh) or not."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_plain(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return (*rmsnorm_backward_plain(x, scale, dy, eps=ctx.eps), None)
+
+
+def _rmsnorm_dtensor(x, scale, eps):
+    """``rmsnorm`` on DTensors through ``local_map`` (module docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = (x if is_dtensor(x) else scale).device_mesh
+    repl = (Replicate(),) * mesh.ndim
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, repl, run_check=False)
+    last = x.dim() - 1
+    rows = tuple(p if p.is_shard() and p.dim % x.dim() != last else Replicate()
+                 for p in x.placements)
+    if rows != tuple(x.placements):
+        x = x.redistribute(mesh, rows)
+    if not is_dtensor(scale):
+        scale = DTensor.from_local(scale, mesh, repl, run_check=False)
+    elif tuple(scale.placements) != repl:
+        scale = scale.redistribute(mesh, repl)
+    scale_grad = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    fn = local_map(functools.partial(rmsnorm, eps=eps), out_placements=list(rows),
+                   in_placements=(rows, repl), in_grad_placements=(rows, scale_grad),
+                   device_mesh=mesh)
+    return fn(x, scale)
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """RMSNorm over the last axis of ``x`` (any leading shape)."""
+    if is_dtensor(x) or is_dtensor(scale):
+        return _rmsnorm_dtensor(x, scale, eps)
     if x.is_cuda:
         if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
             return _RMSNorm.apply(x, scale, eps)
         return _launch(x, scale, eps)
     if x.device.type == "cpu":
+        if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+            return _RMSNormPlain.apply(x, scale, eps)
         return rmsnorm_plain(x, scale, eps=eps)
     raise ValueError(f"rmsnorm: no kernel for device {x.device}")

@@ -8,7 +8,12 @@ published one. The registry directory is the stable linker's store;
 rerunning with the same ``--registry`` resumes from the newest checkpoint
 through the epoch (table-driven) path. The step runs on ``--device``
 (``cuda`` unless the caller asks for the CPU; without a card it raises).
-The reference's ``--mesh`` waits for the multi-device slice.
+
+``--mesh`` (``local``, ``pod``, ``multipod`` or ``AxB[xC]``) trains
+through ``build_step`` on that mesh, as the reference does; the process
+group it needs is set up here (``launch/mesh.py::ensure_process_group``:
+one rank for ``local``, the environment's ranks for a larger mesh, one
+process per device). Without ``--mesh`` the trainer runs meshless.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import json
 import tempfile
 
 from repro_torch.configs import ARCHS, ShapeConfig, get_config
+from repro_torch.launch.mesh import ensure_process_group, mesh_from_spec
 from repro_torch.optim import OptConfig
 from repro_torch.train import TrainConfig, Trainer
 
@@ -32,6 +38,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--mesh", default=None, help="local | pod | multipod | AxB[xC]")
     ap.add_argument("--registry", default=None)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--fail-at-step", type=int, default=-1)
@@ -48,14 +55,21 @@ def main() -> None:
         fail_at_step=args.fail_at_step,
         opt=OptConfig(peak_lr=args.lr, warmup_steps=5, decay_steps=args.steps),
     )
-    tr = Trainer(registry, cfg, shape, tcfg, device=args.device)
-    if tr.app_name not in tr.ws.world():
+    mesh = None
+    if args.mesh is not None:
+        ensure_process_group(args.mesh, args.device)
+        mesh = mesh_from_spec(args.mesh, args.device)
+    tr = Trainer(registry, cfg, shape, tcfg, device=args.device, mesh=mesh)
+    if tr.rank == 0 and tr.app_name not in tr.ws.world():
         tr.publish()
     res = tr.run()
+    if tr.rank != 0:
+        return
     print(
         json.dumps(
             {
                 "arch": cfg.name,
+                "mesh": args.mesh,
                 "registry": registry,
                 "steps": res.steps_done,
                 "restarts": res.restarts,

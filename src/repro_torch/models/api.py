@@ -7,18 +7,26 @@
     forward(cfg, params, batch)       -> (logits, aux)
     prefill(cfg, params, batch)       -> (logits, cache)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
+    cache_spec(cfg, B, S)             -> ({name: (shape, dtype)}, {name: axes})
     manifest_refs(cfg)                -> [SymbolRef]  (stable-linking imports)
+    abstract(cfg)                     -> {name: meta tensor}  (dry-run)
+    input_specs(cfg, shape)           -> {name: meta tensor}  (dry-run)
+    input_axes(cfg, shape)            -> {name: logical axes}
+
+A tensor on the ``meta`` device stands in for the reference's
+``ShapeDtypeStruct``: a shape and a dtype, no storage.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import SymbolRef
 
 from . import hybrid, mamba2, transformer
 from .specs import ParamSpec, init_params as _init
-from .specs import param_count
+from .specs import param_bytes, param_count, torch_dtype
 
 
 def _mod(cfg):
@@ -54,6 +62,10 @@ def prefill(cfg, params, batch, *, impl="kernel", cache_len=None):
 
 def decode_step(cfg, params, cache, tokens):
     return _mod(cfg).decode_step(cfg, params, cache, tokens)
+
+
+def cache_spec(cfg, batch, seq_len):
+    return _mod(cfg).cache_spec(cfg, batch, seq_len)
 
 
 # ------------------------------------------------------------ stable linking
@@ -99,3 +111,53 @@ def n_active_params(cfg) -> int:
             n = n * cfg.experts_per_token // cfg.num_experts
         total += n
     return total
+
+
+def n_param_bytes(cfg) -> int:
+    return param_bytes(param_specs(cfg))
+
+
+# ----------------------------------------------------------- abstract values
+def _meta(shape, dtype) -> torch.Tensor:
+    if isinstance(dtype, str):
+        dtype = torch_dtype(dtype)
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def abstract(cfg) -> dict[str, torch.Tensor]:
+    """Every parameter as a meta tensor of its shape and dtype."""
+    return {n: _meta(s.shape, s.dtype) for n, s in param_specs(cfg).items()}
+
+
+def input_specs(cfg, shape) -> dict:
+    """Meta tensors for every model input of a shape config, as the
+    reference's ``input_specs``: int32 tokens (and labels), an
+    encoder-decoder's frames, a decode step's cache."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = lambda b, s: _meta((b, s), torch.int32)
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": tok(B, S)}
+        if shape.kind == "train":
+            specs["labels"] = tok(B, S)
+        if cfg.is_encdec:
+            # modality frontend stub: precomputed frame embeddings
+            specs["frames"] = _meta((B, S, cfg.d_model), cfg.dtype)
+        return specs
+    if shape.kind == "decode":
+        shapes, _ = cache_spec(cfg, B, S)
+        return {"tokens": tok(B, 1),
+                "cache": {n: _meta(sh, dt) for n, (sh, dt) in shapes.items()}}
+    raise ValueError(shape.kind)
+
+
+def input_axes(cfg, shape) -> dict:
+    """Logical sharding axes matching ``input_specs``' structure."""
+    if shape.kind in ("train", "prefill"):
+        axes = {"tokens": ("batch", "seq")}
+        if shape.kind == "train":
+            axes["labels"] = ("batch", "seq")
+        if cfg.is_encdec:
+            axes["frames"] = ("batch", "seq", "embed_tp")
+        return axes
+    _, cache_axes = cache_spec(cfg, shape.global_batch, shape.seq_len)
+    return {"tokens": ("batch", None), "cache": cache_axes}

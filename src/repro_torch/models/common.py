@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.context import is_dtensor
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -144,6 +145,90 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0, impl="kernel",
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
+def _whole(x, dims: tuple, divides: int = 0):
+    """DTensor ``x`` with every mesh axis that shards one of ``dims``
+    gathered, but for an axis whose size divides ``divides``."""
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_shard() and p.dim % x.dim() in dims
+          and (not divides or divides % x.device_mesh.size(i)) else p
+          for i, p in enumerate(x.placements)]
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return x
+
+
+def _local_reshape(x, fn):
+    """``fn`` (a reshape that keeps every sharded axis's index and splits
+    or merges only unsharded or evenly sharded trailing axes) applied to
+    each device's shard of the DTensor ``x``; the gradient comes back
+    through the same placements."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(x.placements)
+    return local_map(fn, out_placements=list(pl), in_placements=(pl,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def split_heads(x, heads: int, hd: int):
+    """(..., heads * hd) -> (..., heads, hd). On a DTensor whose last axis a
+    mesh axis shards into pieces that do not hold whole heads (gemma3-1b's
+    4 heads over a 16-way axis), that mesh axis is gathered first: DTensor
+    cannot split a shard across the new axes (XLA reshards there too); the
+    split itself runs on each shard, so the gradient keeps the placements."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-1], heads, hd)
+    x = _whole(x, (x.dim() - 1,), heads)
+    return _local_reshape(x, lambda t: t.reshape(*t.shape[:-1], t.shape[-1] // hd, hd))
+
+
+def merge_heads(x):
+    """(..., heads, hd) -> (..., heads * hd), the inverse of
+    ``split_heads``: on a DTensor, a sharded head_dim is gathered first and
+    the merge runs on each shard (heads stay sharded where they were)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], -1)
+    x = _whole(x, (x.dim() - 1,))
+    return _local_reshape(x, lambda t: t.reshape(*t.shape[:-2], -1))
+
+
+def cache_device(like):
+    """Where a prefill makes its cache: ``like``'s device, or the meta
+    device when ``like`` is a DTensor (``placed_like`` then makes each
+    device's shard)."""
+    return torch.device("meta") if is_dtensor(like) else like.device
+
+
+def placed_like(cache: dict, like, axes: dict) -> dict:
+    """A freshly made cache as DTensors on ``like``'s mesh when ``like`` is
+    a DTensor: each tensor (made on ``cache_device``) becomes zeros of this
+    device's shard, placed as its logical ``axes`` resolve under the
+    current ``mesh_rules`` (the cache shardings of ``launch/steps.py``), so
+    a step on a mesh writes into it in place; unchanged otherwise."""
+    if not is_dtensor(like):
+        return cache
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.context import current_mesh_rules
+    from repro_torch.dist.sharding import local_shape, placements_for, spec_for
+
+    mesh = like.device_mesh
+    ctx = current_mesh_rules()
+    rules = ctx[1] if ctx is not None and ctx[0] is mesh else None
+    device = like.to_local().device
+    out = {}
+    for n, t in cache.items():
+        if not isinstance(t, torch.Tensor):
+            out[n] = t
+            continue
+        entries = spec_for(axes[n], t.shape, mesh, rules)
+        local = torch.zeros(local_shape(t.shape, entries, mesh), dtype=t.dtype,
+                            device=device)
+        out[n] = DTensor.from_local(local, mesh, placements_for(entries, mesh),
+                                    run_check=False, shape=t.shape, stride=t.stride())
+    return out
+
+
 def host_ints(values, device) -> torch.Tensor:
     """A host sequence of ints as an int64 tensor on ``device``. On CUDA it
     goes up from pinned memory without waiting for the stream, so a decode
@@ -164,6 +249,8 @@ def decode_attention(q, k_cache, v_cache, pos):
     b, s, kvh, hd = k_cache.shape
     h = q.shape[2]
     g = h // kvh
+    if is_dtensor(q):        # whole KV groups on each device (see split_heads)
+        q = _whole(q, (2, 3), kvh)
     qg = q.reshape(b, 1, kvh, g, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * hd**-0.5
     if isinstance(pos, torch.Tensor):
@@ -197,8 +284,11 @@ def cross_entropy(logits, labels, mask: Optional[torch.Tensor] = None):
     """Mean next-token CE; logits (B,S,V) any float dtype, f32 internally."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - ll
+    # the difference is taken before the gathered axis is dropped: on a
+    # DTensor sharded over the vocab, the gather's masked partial sum is
+    # reduced in the shape it was gathered in
+    ll = torch.gather(logits, -1, labels[..., None].long())
+    nll = (logz[..., None] - ll)[..., 0]
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()

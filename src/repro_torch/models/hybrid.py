@@ -27,9 +27,13 @@ from .common import (
     cross_entropy,
     decode_attention,
     host_ints,
+    merge_heads,
     mlp,
+    cache_device,
+    placed_like,
     rms_norm,
     rope_angles,
+    split_heads,
 )
 from .specs import ParamSpec, torch_dtype
 
@@ -78,21 +82,19 @@ def param_specs(cfg) -> dict[str, ParamSpec]:
 def _shared_qkv(cfg, params, x, x0):
     """The shared block's norm over concat(x, x0) and its q/k/v, before
     RoPE: (B,S,H,hd), (B,S,KV,hd), (B,S,KV,hd)."""
-    B, S, _ = x.shape
     hd = _hd(cfg)
     h = torch.cat([x, x0], -1)                                 # (B,S,2d)
     h = rms_norm(h, params["shared_attn/norm/scale"], cfg.norm_eps)
-    q = (h @ params["shared_attn/wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (h @ params["shared_attn/wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (h @ params["shared_attn/wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    q = split_heads(h @ params["shared_attn/wq"], cfg.num_heads, hd)
+    k = split_heads(h @ params["shared_attn/wk"], cfg.num_kv_heads, hd)
+    v = split_heads(h @ params["shared_attn/wv"], cfg.num_kv_heads, hd)
     return q, k, v
 
 
 def _shared_out(cfg, params, x, o):
     """The shared block after attention: wo, the MLP at 2*d with its norm,
     and the projection back to d, added to x."""
-    B, S, _ = x.shape
-    a = o.reshape(B, S, -1) @ params["shared_attn/wo"]
+    a = merge_heads(o) @ params["shared_attn/wo"]
     hm = rms_norm(a, params["shared_attn/mlp_norm/scale"], cfg.norm_eps)
     a = a + mlp(hm, params["shared_attn/mlp/w_gate"], params["shared_attn/mlp/w_up"],
                 params["shared_attn/mlp/w_down"])
@@ -172,7 +174,8 @@ def prefill(cfg, params, batch, *, impl: str = "kernel", cache_len=None):
     x = mamba2.embed(params, tokens)
     x0 = x
     sin, cos = rope_angles(torch.arange(S, device=x.device), _hd(cfg), cfg.rope_theta)
-    cache = init_cache(cfg, B, max(cache_len or S, S), x.device)
+    cache = placed_like(init_cache(cfg, B, max(cache_len or S, S), cache_device(x)), x,
+                        cache_spec(cfg, B, S)[1])
     for i, lo, hi in _groups(cfg):
         x, (k, v) = _shared_block(cfg, params, x, x0, sin, cos, impl=impl,
                                   collect_kv=True)

@@ -23,6 +23,9 @@ Departures from the reference that do not change results:
   and returns a dict holding the same, updated tensors;
 * the cache's ``pos`` is a Python int, or a tuple of ints, one per batch
   row (the slot scheduler's form); nothing here reads it, it counts tokens.
+
+The reference's sharding hints (``constrain``) stand at its points: the
+block's input and weights, and the logits.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import cross_entropy, rms_norm
+from repro_torch.dist.context import constrain
+
+from .common import cache_device, cross_entropy, placed_like, rms_norm
 from .runtime import remat_wrap
 from .specs import ParamSpec, torch_dtype
 
@@ -92,14 +97,46 @@ def param_specs(cfg) -> dict[str, ParamSpec]:
 # --------------------------------------------------------------------------
 # SSD core
 # --------------------------------------------------------------------------
+class _Cumsum(torch.autograd.Function):
+    """``torch.cumsum`` over the last axis, its gradient the reversed
+    cumulative sum that autograd takes, with the reversal an
+    ``index_select`` rather than ``flip`` (torch 2.11's DTensor has no
+    strategy for ``flip``): the same values, on a mesh too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.cumsum(x, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-1]
+        if n <= 1:
+            return g
+        rev = torch.arange(n - 1, -1, -1, device=g.device)
+        return torch.cumsum(g.index_select(-1, rev), -1).index_select(-1, rev)
+
+
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """(..., T) -> (..., T, T) with out[i,j] = sum_{j<k<=i} x[k]; NEG_INF
     above the diagonal (finite, so exp gives exact zeros)."""
     T = x.shape[-1]
-    cs = torch.cumsum(x, -1)
+    cs = _Cumsum.apply(x)
     ss = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
     return ss.masked_fill(~mask, NEG_INF)
+
+
+def _zero_pad(t: torch.Tensor, dim: int, *, before: int = 0, after: int = 0):
+    """``t`` with zeros before and after it along ``dim``: ``F.pad``'s
+    values, as a concatenation (a DTensor of torch 2.11 loses its mesh's
+    rank through ``F.pad``)."""
+    dim %= t.dim()
+    parts = []
+    for n in (before, after):
+        shape = list(t.shape)
+        shape[dim] = n
+        parts.append(torch.zeros(shape, dtype=t.dtype, device=t.device))
+    return torch.cat([parts[0], t, parts[1]], dim)
 
 
 def _f32(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -117,11 +154,8 @@ def ssd(x, a, B, C, *, chunk: int, initial_state=None):
     b, s, h, p = x.shape
     n = B.shape[-1]
     pad = (-s) % chunk
-    if pad:                           # F.pad counts axes from the back
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        a = F.pad(a, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    if pad:                           # zeros after the sequence
+        x, a, B, C = (_zero_pad(t, 1, after=pad) for t in (x, a, B, C))
     sp = s + pad
     c = sp // chunk
     f32 = torch.float32
@@ -130,7 +164,7 @@ def ssd(x, a, B, C, *, chunk: int, initial_state=None):
     Bf = B.reshape(b, c, chunk, h, n).float()
     Cf = C.reshape(b, c, chunk, h, n).float()
     a = a.reshape(b, c, chunk, h).permute(0, 3, 1, 2).to(f32)
-    a_cum = torch.cumsum(a, -1)                                # (b,h,c,l)
+    a_cum = _Cumsum.apply(a)                                # (b,h,c,l)
 
     # 1. intra-chunk (quadratic within chunk)
     L = torch.exp(_segsum(a))                                  # (b,h,c,l,l)
@@ -146,7 +180,7 @@ def ssd(x, a, B, C, *, chunk: int, initial_state=None):
         initial_state = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
     states = torch.cat([initial_state[:, None].to(f32), states], 1)  # (b,c+1,...)
     chunk_decay = a_cum[..., -1]                               # (b,h,c)
-    dc = torch.exp(_segsum(F.pad(chunk_decay, (1, 0))))        # (b,h,c+1,c+1)
+    dc = torch.exp(_segsum(_zero_pad(chunk_decay, -1, before=1)))  # (b,h,c+1,c+1)
     new_states = torch.einsum("bhzc,bchpn->bzhpn", dc, states)
     states, final = new_states[:, :-1], new_states[:, -1]
 
@@ -215,6 +249,20 @@ def mamba_block(cfg, p, x, *, state=None, conv_state=None, return_state=False):
     ``return_state`` also (final SSM state (B,H,P,N) f32, conv state)."""
     d_inner = cfg.ssm_inner
     B_, S, _ = x.shape
+    x = constrain(x, ("batch", "seq", None))
+    # FSDP weight unsharding at use-site (see transformer._gather_weights)
+    tmpl = block_specs(cfg)
+    p = {
+        n: (
+            constrain(
+                a,
+                tuple(None if ax == "embed" else ax for ax in tmpl[n].axes),
+            )
+            if n in tmpl
+            else a
+        )
+        for n, a in p.items()
+    }
     h = rms_norm(x, p["norm/scale"], cfg.norm_eps)
     proj = h @ p["in_proj/w"]
     z, xBC, dt_raw = _split_proj(cfg, proj)
@@ -282,9 +330,12 @@ def embed(params, tokens):
 
 def logits_fn(cfg, params, x):
     x = rms_norm(x, params["final_norm/scale"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return x @ params["embed/tokens"].T
-    return x @ params["lm_head/w"]
+    logits = (
+        x @ params["embed/tokens"].T
+        if cfg.tie_embeddings
+        else x @ params["lm_head/w"]
+    )
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def forward(cfg, params, batch, *, impl: str = "kernel"):
@@ -341,7 +392,7 @@ def prefill(cfg, params, batch, *, impl: str = "kernel", cache_len=None):
     B, S = tokens.shape
     x = embed(params, tokens)
     stacked = _stacked(params)
-    cache = init_cache(cfg, B, S, x.device)
+    cache = placed_like(init_cache(cfg, B, S, cache_device(x)), x, cache_spec(cfg, B, S)[1])
     block = remat_block(cfg)
     for i in range(cfg.num_layers):
         x, final, conv = block(cfg, layer(stacked, i), x, return_state=True)

@@ -9,13 +9,21 @@ config's policy) on ``torch.utils.checkpoint``:
 * ``"none"``    — no remat: the body itself.
 
 The models apply it only while autograd records (``torch.is_grad_enabled``),
-so prefill and decode run the body as it is. The reference's
-``unroll_scans`` belongs to its dry-run, which the port does not have yet.
+so prefill and decode run the body as it is.
+
+``unroll_scans()`` / ``scans_unrolled()`` keep the reference's switch for
+the dry-run's API (``launch/dryrun.py`` enters it around its cost probes,
+as the reference does). In the reference it makes each layer stack trace
+as straight-line code instead of ``lax.scan``, because XLA's cost analysis
+counts a loop body once. In the port every layer stack is already a
+Python loop, so the flag changes no arithmetic and no count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+from contextvars import ContextVar
 
 import torch
 from torch.utils.checkpoint import (
@@ -29,6 +37,22 @@ _aten = torch.ops.aten
 # matmul's batched forms) and the einsums, which lower to bmm
 _DOTS = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
          _aten.baddbmm.default}
+
+
+_UNROLL: ContextVar[bool] = ContextVar("repro_torch_unroll_scans", default=False)
+
+
+def scans_unrolled() -> bool:
+    return _UNROLL.get()
+
+
+@contextlib.contextmanager
+def unroll_scans(on: bool = True):
+    token = _UNROLL.set(on)
+    try:
+        yield
+    finally:
+        _UNROLL.reset(token)
 
 
 def _save_dots(ctx, op, *args, **kwargs):

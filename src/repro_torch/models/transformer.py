@@ -11,8 +11,9 @@ exactly.
 
 Departures from the reference that do not change results:
 
-* the reference's sharding hints (``constrain``) are no-ops on one device
-  and are dropped;
+* the reference's sharding hints (``constrain``) stand at its points:
+  identity outside a ``dist.context.mesh_rules`` context, a DTensor
+  redistribution inside one (``launch/steps.py::build_step``);
 * ``decode_step`` updates the KV cache IN PLACE (the reference returns a
   new cache); the returned dict holds the same, updated tensors;
 * the cache's ``pos`` is a Python int, so decode never waits on the device
@@ -30,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.context import constrain
+
 from . import moe
 from .common import (
     apply_rope,
@@ -38,9 +41,13 @@ from .common import (
     decode_attention,
     host_ints,
     layer_norm,
+    merge_heads,
     mlp,
+    cache_device,
+    placed_like,
     rms_norm,
     rope_angles,
+    split_heads,
 )
 from .runtime import remat_wrap
 from .specs import ParamSpec, torch_dtype
@@ -169,7 +176,6 @@ def _norm(p, name, x, cfg):
 
 
 def _project_qkv(cfg, p, x):
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     q = x @ p["attn/wq"]
@@ -179,9 +185,9 @@ def _project_qkv(cfg, p, x):
         q = q + p["attn/bq"]
         k = k + p["attn/bk"]
         v = v + p["attn/bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = split_heads(q, H, hd)
+    k = split_heads(k, KV, hd)
+    v = split_heads(v, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["attn/q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["attn/k_norm"], cfg.norm_eps)
@@ -189,12 +195,11 @@ def _project_qkv(cfg, p, x):
 
 
 def _self_attention(cfg, p, x, sin, cos, *, window, impl):
-    B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     o = attention(q, k, v, causal=True, window=window, impl=impl)
-    o = o.reshape(B, S, -1) @ p["attn/wo"]
+    o = merge_heads(o) @ p["attn/wo"]
     if cfg.use_bias:
         o = o + p["attn/bo"]
     return o, k, v
@@ -228,20 +233,38 @@ def _mlp_or_moe(cfg, p, x):
 def _cross_kv(cfg, p, enc_out):
     """The decoder layer's cross-attention keys and values over the
     encoder's output: (B, S_enc, KV, hd) each; no RoPE, norm or bias."""
-    B, S_enc, _ = enc_out.shape
-    shape = (B, S_enc, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return (enc_out @ p["xattn/wk"]).reshape(shape), (enc_out @ p["xattn/wv"]).reshape(shape)
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return (split_heads(enc_out @ p["xattn/wk"], KV, hd),
+            split_heads(enc_out @ p["xattn/wv"], KV, hd))
 
 
 def _cross_query(cfg, p, x):
     h = _norm(p, "xattn_norm", x, cfg)
-    B, S, _ = h.shape
-    return (h @ p["xattn/wq"]).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    return split_heads(h @ p["xattn/wq"], cfg.num_heads, cfg.resolved_head_dim)
+
+
+def _gather_weights(cfg, p, *, cross=False):
+    """FSDP weight unsharding at use-site: drop the `embed`(->data) axis
+    from each block weight's placement, one all-gather per weight per use
+    instead of a reduction of every activation product over the sharded
+    contraction dim (the reference's choice)."""
+    tmpl = _block_specs(cfg, cross=cross)
+    out = {}
+    for n, a in p.items():
+        spec = tmpl.get(n)
+        if spec is None:
+            out[n] = a
+            continue
+        axes = tuple(None if ax in ("embed",) else ax for ax in spec.axes)
+        out[n] = constrain(a, axes)
+    return out
 
 
 def _block(cfg, p, x, sin, cos, *, window, impl, enc_out=None):
     """One layer -> (x, aux or None, kv): kv is (k, v), and for a decoder
     layer of an encoder-decoder (``enc_out`` given) (k, v, xk, xv)."""
+    x = constrain(x, ("batch", "seq", None))  # keep activations DP-sharded
+    p = _gather_weights(cfg, p, cross=enc_out is not None)
     h = _norm(p, "attn_norm", x, cfg)
     o, k, v = _self_attention(cfg, p, h, sin, cos, window=window, impl=impl)
     x = x + o
@@ -249,7 +272,7 @@ def _block(cfg, p, x, sin, cos, *, window, impl, enc_out=None):
     if enc_out is not None:           # cross attention, never causal
         xk, xv = _cross_kv(cfg, p, enc_out)
         o = attention(_cross_query(cfg, p, x), xk, xv, causal=False, impl=impl)
-        x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["xattn/wo"]
+        x = x + merge_heads(o) @ p["xattn/wo"]
         kv += (xk, xv)
     h = _norm(p, "mlp_norm", x, cfg)
     m, aux = _mlp_or_moe(cfg, p, h)
@@ -304,9 +327,12 @@ def run_stack(cfg, params, prefix, x, sin, cos, *, impl, enc_out=None,
 
 def logits_fn(cfg, params, x):
     x = _norm(params, "final_norm", x, cfg)
-    if cfg.tie_embeddings:
-        return x @ params["embed/tokens"].T
-    return x @ params["lm_head/w"]
+    logits = (
+        x @ params["embed/tokens"].T
+        if cfg.tie_embeddings
+        else x @ params["lm_head/w"]
+    )
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _embed(params, tokens):
@@ -352,6 +378,21 @@ def loss_fn(cfg, params, batch, *, impl: str = "chunked", aux_coef=0.01):
     return cross_entropy(logits, batch["labels"]) + aux_coef * aux
 
 
+def cache_spec(cfg, batch: int, seq_len: int):
+    """({name: (shape, dtype name)}, {name: logical axes}) of the decode
+    cache, as the reference's ``cache_spec``: ``k``/``v`` (L, B, seq_len,
+    KV, hd), a 0-d int32 ``pos``, and an encoder-decoder's ``xk``/``xv``."""
+    kv = ((cfg.num_layers, batch, seq_len, cfg.num_kv_heads, cfg.resolved_head_dim),
+          cfg.dtype)
+    kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    shapes = {"k": kv, "v": kv, "pos": ((), "int32")}
+    axes = {"k": kv_axes, "v": kv_axes, "pos": ()}
+    if cfg.is_encdec:
+        shapes.update({"xk": kv, "xv": kv})
+        axes.update({"xk": kv_axes, "xv": kv_axes})
+    return shapes, axes
+
+
 def init_cache(cfg, batch: int, seq_len: int, device, *, cross_len=None):
     """Zero cache: ``k``/``v`` of shape (L, B, seq_len, KV, hd), ``pos`` 0;
     an encoder-decoder's also holds cross ``xk``/``xv`` of
@@ -381,8 +422,9 @@ def prefill(cfg, params, batch, *, impl: str = "kernel", cache_len=None):
     sin, cos = rope_angles(torch.arange(S, device=x.device), cfg.resolved_head_dim,
                            cfg.rope_theta)
     enc_out = _encode(cfg, params, batch["frames"], impl) if cfg.is_encdec else None
-    cache = init_cache(cfg, B, cache_len or S, tokens.device,
-                       cross_len=enc_out.shape[1] if cfg.is_encdec else None)
+    cache = placed_like(init_cache(cfg, B, cache_len or S, cache_device(x),
+                                   cross_len=enc_out.shape[1] if cfg.is_encdec else None),
+                        x, cache_spec(cfg, B, S)[1])
 
     def on_kv(i, k, v, *xkv):
         cache["k"][i, :, :S] = k
@@ -469,14 +511,14 @@ def decode_step(cfg, params, cache, tokens):
                                      v_c[:, start:start + window], pos - start)
             else:
                 o = decode_attention(q, k_c, v_c, pos)
-        o = o.reshape(B, 1, -1) @ p["attn/wo"]
+        o = merge_heads(o) @ p["attn/wo"]
         if cfg.use_bias:
             o = o + p["attn/bo"]
         x = x + o
         if cfg.is_encdec:
             o = decode_attention(_cross_query(cfg, p, x), cache["xk"][i],
                                  cache["xv"][i], xpos)
-            x = x + o.reshape(B, 1, -1) @ p["xattn/wo"]
+            x = x + merge_heads(o) @ p["xattn/wo"]
         h = _norm(p, "mlp_norm", x, cfg)
         x = x + _mlp_or_moe(cfg, p, h)[0]
 

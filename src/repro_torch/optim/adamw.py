@@ -12,6 +12,13 @@ parameters, the moments and the step IN PLACE (the reference returns new
 arrays and donates the old ones) and returns the same tensors, so a
 trainer whose state lives in a device arena never copies it. Call it
 under ``torch.no_grad()``.
+
+On a mesh (``launch/steps.py::build_step``) the parameters, moments and
+gradients are DTensors and every op here is DTensor's: a sharded
+gradient's sum of squares is a partial sum that DTensor reduces across
+the mesh before the square root, so the global norm is the norm over
+every shard (``tests/test_torch_dist.py`` holds it at 4 ranks), and each
+moment is updated beside its parameter's shard.
 """
 
 from __future__ import annotations

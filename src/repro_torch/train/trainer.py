@@ -24,9 +24,29 @@ Fault tolerance: injectable failure (tests), per-step deadline -> straggler
 counter; a RuntimeError in the loop is a node failure, and the job restarts
 from the newest checkpoint.
 
-Departures from the reference: no mesh (the multi-device slice is not
-ported yet) and no AOT executable cache (the step runs eagerly:
-``compile_source`` reads ``"eager"``); the workspace bakes no host arenas
+The mesh (``mesh=``, a ``DeviceMesh`` from ``launch/mesh.py``): without
+one, the step is ``make_train_fn`` on the arena's views. With one, the
+step is ``build_step``'s, as the reference's ``_startup`` builds it, and
+every leaf is a DTensor at the mesh's shardings:
+
+* on a mesh whose every axis has size 1, the arena's views are wrapped
+  (``DTensor.from_local``, replicated, no copy), so the step still trains
+  the arena in place;
+* on a larger mesh, every rank does a ``stable`` load of the whole state
+  and keeps its shard (``distribute_tensor``), as the reference's
+  ``device_put`` does; a load that reads only a rank's pages is ROADMAP
+  item 13;
+* rank 0 alone opens the store at construction and does management (the
+  first publish and each checkpoint's publish); every rank waits at a
+  barrier before each load, and the others open the store then, on the
+  newest committed world (a store two ranks create at once could lose
+  rank 0's state); ``TrainResult.checkpoint_saves`` counts rank 0's;
+* a checkpoint gathers each leaf (``full_tensor``, a collective every rank
+  joins) and rank 0 publishes it.
+
+Departures from the reference: no AOT executable cache (the step runs
+eagerly: ``compile_source`` reads ``"eager"``; caching a captured CUDA
+graph of the step is ROADMAP Queue B2 item 3); the workspace bakes no host arenas
 (``bake_arenas=False``: no start reads one); a RuntimeError that recurs past
 ``MAX_RESTARTS`` restarts is raised instead of retried for ever;
 ``TrainResult`` also carries each step's wall
@@ -40,12 +60,14 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+import torch
+
 from repro_torch import models
 from repro_torch.ckpt import Checkpointer, bundle_from_params
 from repro_torch.core import ObjectKind, SymbolRef, make_object
 from repro_torch.data import Prefetcher, SyntheticTokens, to_device
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_train_fn
+from repro_torch.launch.steps import build_step, make_train_fn
 from repro_torch.link import Workspace
 from repro_torch.optim import OptConfig
 
@@ -88,16 +110,20 @@ def _opt_refs(cfg) -> list[SymbolRef]:
 
 class Trainer:
     def __init__(self, registry_root, cfg, shape, tcfg: TrainConfig, *,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)     # raises without a card
-        # every start is a device load through the page table, which never
-        # reads a baked host arena: baking one would write a second copy of
-        # the whole state at every checkpoint
-        self.ws = Workspace.open(registry_root, bake_arenas=False)
-        # engine-room views of the workspace (Checkpointer + tests use them)
-        self.registry = self.ws.registry
-        self.manager = self.ws.manager
-        self.executor = self.ws.executor
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot train on {device!r}")
+            if self.device.type == "cuda":       # this rank's card
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        self.registry_root = registry_root
+        # on a mesh only rank 0 opens the store here; the others open it
+        # at each start, after rank 0's commit (``_startup``)
+        self.ws = self.registry = self.manager = self.executor = None
+        if self.rank == 0:
+            self._open()
         self.cfg = cfg
         self.shape = shape
         self.tcfg = tcfg
@@ -108,10 +134,28 @@ class Trainer:
         self.image = self.params = self.opt_state = None
 
     # ------------------------------------------------------------- publish
+    @property
+    def rank(self) -> int:
+        """This process's rank on the mesh's group (0 without a mesh)."""
+        return 0 if self.mesh is None else torch.distributed.get_rank()
+
+    def _open(self) -> None:
+        # every start is a device load through the page table, which never
+        # reads a baked host arena: baking one would write a second copy of
+        # the whole state at every checkpoint
+        self.ws = Workspace.open(self.registry_root, bake_arenas=False)
+        # engine-room views of the workspace (Checkpointer + tests use them)
+        self.registry = self.ws.registry
+        self.manager = self.ws.manager
+        self.executor = self.ws.executor
+
     def publish(self, params_np: Optional[dict] = None) -> None:
         """Initial management time: app + bundles, one transaction.
         ``params_np`` (numpy arrays or tensors, e.g. the reference's init)
-        defaults to ``models.init_params`` from the seed, on the device."""
+        defaults to ``models.init_params`` from the seed, on the device.
+        On a mesh only rank 0 publishes (the others' call is a no-op)."""
+        if self.rank != 0:
+            return
         specs = models.param_specs(self.cfg)
         if params_np is None:
             params_np = models.init_params(self.cfg, self.tcfg.seed, self.device)
@@ -137,23 +181,38 @@ class Trainer:
         """Epoch-path startup: one table-driven load into a device arena;
         the state is views of it."""
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            torch.distributed.barrier()  # rank 0's publish is committed
+            if self.rank != 0:
+                self._open()             # the newest committed world
         image = self.ws.load(self.app_name, strategy="stable", device=self.device)
         params, m_state, v_state = {}, {}, {}
         for n in models.param_specs(self.cfg):
             t = image.tensors[n]
             if t.is_inference():
                 raise RuntimeError(f"{n}: an inference-mode tensor cannot be trained")
-            params[n] = t.requires_grad_()
+            params[n] = t
             m_state[n] = image.tensors[f"opt/m/{n}"]
             v_state[n] = image.tensors[f"opt/v/{n}"]
         step_t = image.tensors["opt/step"].view(())
         step0 = int(step_t)
         opt_state = {"m": m_state, "v": v_state, "step": step_t}
-        step_fn = make_train_fn(
-            self.cfg, self.tcfg.opt, num_microbatches=self.tcfg.microbatches,
-            impl=self.tcfg.impl,
-        )
+        if self.mesh is None:
+            params = {n: t.requires_grad_() for n, t in params.items()}
+            step_fn = make_train_fn(
+                self.cfg, self.tcfg.opt, num_microbatches=self.tcfg.microbatches,
+                impl=self.tcfg.impl,
+            )
+        else:
+            bundle = build_step(
+                self.cfg, self.shape, self.mesh, opt_cfg=self.tcfg.opt,
+                num_microbatches=self.tcfg.microbatches, impl=self.tcfg.impl,
+            )
+            params, opt_state = self._place(params, opt_state, bundle.shardings)
+            step_fn = bundle.jitted
         st = image.stats
+        if self.mesh is not None and self.mesh.size() > 1:
+            image = None                 # each rank keeps copies of its shards
         startup = {
             "strategy": st.strategy,
             "load_s": st.startup_s,
@@ -166,6 +225,42 @@ class Trainer:
         }
         self.image, self.params, self.opt_state = image, params, opt_state
         return params, opt_state, step_fn, step0, startup
+
+    def _place(self, params: dict, opt_state: dict, shardings: dict):
+        """The loaded state as DTensors at the step's shardings: views of
+        the arena on a mesh of one device, each rank's shards otherwise.
+        Params become leaves that require grad."""
+        from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+        mesh = self.mesh
+        if mesh.size() == 1:
+            repl = [Replicate()] * mesh.ndim
+            wrap = lambda t, _: DTensor.from_local(t.detach(), mesh, repl,
+                                                    run_check=False)
+        else:
+            wrap = lambda t, pl: distribute_tensor(t.detach(), mesh, pl,
+                                                   src_data_rank=None)
+        p_sh, o_sh = shardings["params"], shardings["opt"]
+        params = {n: wrap(t, p_sh[n]).requires_grad_() for n, t in params.items()}
+        opt_state = {
+            "m": {n: wrap(t, o_sh["m"][n]) for n, t in opt_state["m"].items()},
+            "v": {n: wrap(t, o_sh["v"][n]) for n, t in opt_state["v"].items()},
+            "step": wrap(opt_state["step"], o_sh["step"]),
+        }
+        return params, opt_state
+
+    def _checkpoint(self, step: int, params: dict, opt_state: dict) -> None:
+        """Save a checkpoint: directly without a mesh; on one, every rank
+        gathers each leaf and rank 0 publishes."""
+        if self.mesh is None:
+            self.ckpt.save(step, params, opt_state)
+            return
+        full = lambda d: {n: t.full_tensor() for n, t in d.items()}
+        host_p = full(params)
+        host_o = {"m": full(opt_state["m"]), "v": full(opt_state["v"]),
+                  "step": opt_state["step"].full_tensor()}
+        if self.rank == 0:
+            self.ckpt.save(step, host_p, host_o)
 
     # ----------------------------------------------------------------- run
     def run(self) -> TrainResult:
@@ -213,7 +308,7 @@ class Trainer:
                         stragglers += 1
                     step += 1
                     if step % tcfg.checkpoint_every == 0:
-                        self.ckpt.save(step, params, opt_state)
+                        self._checkpoint(step, params, opt_state)
                 else:
                     done = True
             except RuntimeError:

@@ -537,3 +537,66 @@ def test_moe_block_bf16_ties_keep_the_cpu_order_on_card(cuda):
     got, _ = moe.moe_block(*on_card, k=k)
     scale = want.float().abs().max().item()
     assert (got.float().cpu() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+# ------------------------------------------------------ the multi-device layer
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-370m"])
+def test_local_mesh_steps_on_card_give_the_meshless_bits(cuda, arch):
+    """``build_step``'s train, prefill (flash kernel) and decode steps on
+    ``make_local_mesh()`` over a one-rank NCCL group: DTensors reach the
+    kernels through ``local_map`` (each launches), and the loss, the
+    updated params, the logits and the tokens are the meshless steps'
+    bits on the card."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels, models
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import ensure_process_group, make_local_mesh
+    from repro_torch.launch.steps import (build_step, make_decode_fn, make_prefill_fn,
+                                          make_train_fn)
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    cfg = get_config(arch, smoke=True)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 17), dtype=np.int32)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=cuda),
+             "labels": torch.as_tensor(toks[:, 1:], device=cuda)}
+    opt = OptConfig(peak_lr=1e-2, warmup_steps=1)
+    p0 = models.init_params(cfg, 0, cuda)
+    own_group = not dist.is_initialized()
+    ensure_process_group("local", "cuda")
+    try:
+        mesh = make_local_mesh()
+        runs = {}
+        for name in ("meshless", "mesh"):
+            params = {n: t.clone().requires_grad_() for n, t in p0.items()}
+            plain = {n: t.clone() for n, t in p0.items()}
+            kernels.zero_launch_counts()
+            if name == "mesh":
+                shp = lambda kind: ShapeConfig(kind, 16, 4, kind)
+                train = build_step(cfg, shp("train"), mesh, opt_cfg=opt).jitted
+                prefill = build_step(cfg, shp("prefill"), mesh, impl="kernel").jitted
+                decode = build_step(cfg, shp("decode"), mesh).jitted
+                local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+            else:
+                train = make_train_fn(cfg, opt)
+                prefill, decode = make_prefill_fn(cfg, impl="kernel"), make_decode_fn(cfg)
+                local = lambda t: t
+            p, _, metrics = train(params, init_opt_state(params), batch)
+            with torch.no_grad():
+                logits, cache = prefill(plain, {"tokens": batch["tokens"]})
+                tok, toks_out = torch.argmax(local(logits)[:, -1:], -1).int(), []
+                for _ in range(3):
+                    tok, cache = decode(plain, cache, tok)
+                    toks_out.append(local(tok))
+            runs[name] = (metrics["loss"], {n: local(t).detach() for n, t in p.items()},
+                          local(logits), torch.cat(toks_out, 1), kernels.launch_counts())
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    (l0, p0_, lg0, t0, c0), (l1, p1, lg1, t1, c1) = runs["meshless"], runs["mesh"]
+    assert torch.equal(l0, l1) and torch.equal(lg0, lg1) and torch.equal(t0, t1)
+    for n, t in p0_.items():
+        assert torch.equal(p1[n], t), n
+    assert c1 == c0 and c1["rmsnorm"] > 0 and c1["rmsnorm_backward"] > 0
+    assert c1["flash_attention"] == (0 if arch == "mamba2-370m" else cfg.num_layers)

@@ -48,7 +48,9 @@ def test_port_sources_import_no_jax_ml_dtypes_or_reference():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 30, "port package not found"
     for module in ("serve/traffic.py", "serve/engine.py", "core/shm_arena.py",
-                   "launch/serve.py", "kernels/__init__.py", "models/moe.py"):
+                   "launch/serve.py", "kernels/__init__.py", "models/moe.py",
+                   "dist/sharding.py", "dist/context.py", "dist/hlo_analysis.py",
+                   "launch/mesh.py", "launch/steps.py", "launch/dryrun.py"):
         assert PORT / module in files, module
     bad = []
     for path in files:
