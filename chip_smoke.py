@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
 
 1. build: compile the port's three CUDA C++ sources with nvcc (one process
    per source, started together), print ``-Xptxas -v``'s registers and
-   spills for the flash-attention and rmsnorm kernels (rmsnorm's forward,
-   its backward and the backward's column sums apart), and check that the
+   spills for the flash-attention and rmsnorm kernels (rmsnorm's forward
+   and each route of its backward apart), and check that the
    flash library's SASS holds tensor-core ``HGMMA`` instructions (with the
    toolkit's ``cuobjdump``; "not checked" where there is none). Set-up then
    publishes gemma3-1b at its published size (26 layers, bf16, random
@@ -30,12 +30,17 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    from the profiler. Every timed call of flash attention and rmsnorm takes
    the next of several copies of its inputs, totalling more than twice
    the 50 MB L2, so no reading is of inputs left in L2 by the call before.
-   rmsnorm's backward kernel: the sweep cases in f32 and bf16 and
-   gemma3-1b's training shapes ((8192, 1152), (32768, 256), (8192, 256)) in
-   bf16, dx within the forward's tolerances, dscale within 1e-4 of the
-   float32 plain sum's largest value, both the same bits on a second call;
-   timed at the training shapes beside ``torch.autograd.grad`` through
-   ``F.rms_norm``, no reading faster than its bound;
+   rmsnorm's forward is also timed at gemma3-1b's training shapes. Its
+   backward kernel on each route (tma: one launch; two_pass: the rows and
+   the column sums): the sweep cases in f32 and bf16, gemma3-1b's training
+   shapes ((8192, 1152), (32768, 256), (8192, 256)) in bf16 and strided
+   rows, dx within the forward's tolerances, dscale within 1e-4 of the
+   float32 plain sum's largest value, both the same bits on a second call,
+   each call counted once on the route ``bwd_route`` gives, the training
+   shapes on the tma route, its tickets back at 0; timed at the training
+   shapes beside ``torch.autograd.grad`` through ``F.rms_norm``, the tma
+   route without clusters and the two_pass route, no reading faster than
+   its bound;
 3. main path: ``repro_torch.launch.serve.serve`` with that app: load with
    ``strategy="stable"``, which builds the arena on the card with one
    paged_reloc_copy launch (the params are views of it), prefill 4 prompts
@@ -137,7 +142,9 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    and DIRECT after; the checkpoint's bytes, loaded back on the host, must
    equal the trainer's snapshot and the restart's arena the host image;
    step 3's loss must be the same bits before and after the restart, and
-   every loss finite. One more step is profiled;
+   every loss finite; every backward on the tma route. One more step is
+   profiled, and the profiler must show one tma backward kernel for each of
+   its 105 backward calls and no two_pass kernel;
 12. the multi-device layer on one card: gemma3-1b at its published widths
    on ``make_local_mesh()`` (the production axis names at 1 x 1, over a
    one-rank NCCL group), in a fresh Workspace with one publish. Serving:
@@ -148,7 +155,9 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    rmsnorm a prefill and a step. Training: a meshless ``Trainer`` and one
    with ``mesh=make_local_mesh()``, 3 steps of 2 x 4096 tokens each, no
    checkpoint: the same loss bits; the mesh run's launches exactly 1 paged
-   copy, 209 rmsnorm forward and 105 backward a step, 0 flash; its params
+   copy, 209 rmsnorm forward and 105 backward a step (all on the tma
+   route), 0 flash; one more mesh step profiled, each backward one tma
+   kernel; its params
    DTensors over views of its arena, which holds the trained values. Then
    ``int8_allreduce_mean`` over the group equals ``dequantize_int8(
    quantize_int8(x))``. The step, prefill and decode step times are
@@ -200,9 +209,15 @@ RMS_TOL = {"float32": (1e-5, 0.0), "bfloat16": (3e-2, 2.0**-7)}  # (abs, rel)
 # rmsnorm's backward at gemma3-1b's training shapes (phase 11: 2 x 4096
 # tokens), launches a step: attn, mlp and final norm; q-norm (4 heads); k-norm
 RMS_BWD_TRAIN = {(8192, 1152): 53, (32768, 256): 26, (8192, 256): 26}
-RMS_BWD_TRAIN_KERNELS = (     # the instantiations those shapes run (bf16)
-    "rmsnorm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, 8, 128, 2>",
-    "rmsnorm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, 8, 32, 1>")
+# the forward at those shapes: each norm once and again in the remat recompute
+# (the final norm is outside the remat unit)
+RMS_FWD_TRAIN = {(8192, 1152): 105, (32768, 256): 52, (8192, 256): 52}
+RMS_BWD_TRAIN_KERNELS = (     # the instantiations those shapes run (bf16, tma)
+    "rmsnorm_bwd_tma_kernel<__nv_bfloat16, __nv_bfloat16, 5, 4, 1>",
+    "rmsnorm_bwd_tma_kernel<__nv_bfloat16, __nv_bfloat16, 1, 1, 4>")
+# the backward's kernels by route (names as ptxas and the profiler give them)
+RMS_BWD_KERNELS = {"tma": "rmsnorm_bwd_tma_kernel",
+                   "two_pass": "rmsnorm_bwd_kernel", "two_pass sums": "col_sum_kernel"}
 RMS_BWD_FLOPS = 12            # per element: the two row sums, dx, dscale's term
 DSCALE_TOL = 1e-4             # of the float32 plain sum's largest value
 
@@ -414,9 +429,8 @@ def build_kernels() -> dict:
             continue
         if source == rn.SOURCE:        # 48 instantiations a pass: summary lines
             for what, prefix in (("forward", "rmsnorm_kernel"),
-                                 ("backward", "rmsnorm_bwd_kernel"),
-                                 ("backward column sums", "col_sum_kernel")):
-                part = [r for r in rows if r["kernel"].startswith(prefix)]
+                                 *((f"backward, {k}", v) for k, v in RMS_BWD_KERNELS.items())):
+                part = [r for r in rows if r["kernel"].startswith(prefix + "<")]
                 log(f"  ptxas {what}: {len(part)} kernels, at most "
                     f"{max((r['regs'] for r in part), default=0)} registers, "
                     f"{sum(r['spill_bytes'] for r in part)} spill bytes in all")
@@ -904,6 +918,8 @@ def check_rmsnorm(cfg, others) -> dict:
     for name, other_mix in other_mixes.items():
         log(f"rmsnorm at {name}'s shapes:")
         per_other[name] = rms_rows(other_mix, g)
+    log(f"rmsnorm at {cfg.name}'s training shapes (launches a step):")
+    per_train = rms_rows(RMS_FWD_TRAIN, g)
     return {
         "name": "rmsnorm",
         "route": "cuda",
@@ -916,6 +932,7 @@ def check_rmsnorm(cfg, others) -> dict:
         "_cases": errs,
         "_per_shape": per_shape,
         "_per_shape_other": per_other,
+        "_per_shape_train": per_train,
     }
 
 
@@ -930,15 +947,40 @@ def rms_bwd_inputs(shape, dt, g, copies: int = 1) -> tuple:
     return x, s, dy
 
 
+def two_pass_backward(x, s, dy):
+    """(dx, dscale) from the two_pass route's kernels on rows ``bwd_route``
+    sends to the tma route, for a comparison of the two in one run: ops.py's
+    ``_two_pass`` called as ``_launch_backward`` calls it (bound by an
+    earlier backward), and counted on no route."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+
+    xc, wc, rows, n, stride = rn._rows(x, s)
+    dx, ds = torch.empty_like(x), torch.empty_like(s)
+    err = rn._two_pass(xc, wc, rows, dy, s, dx, ds, n, x.shape[-1], stride, 1e-6,
+                       rn._raw_stream(x.get_device()))
+    if err:
+        fail(f"rmsnorm backward two_pass {tuple(x.shape)}: "
+             f"{rn._lib.rms_error_string(err).decode()}")
+    return dx, ds
+
+
 def check_rmsnorm_backward() -> dict:
-    """rmsnorm's backward kernel against ``rmsnorm_backward_plain``: the
-    sweep's cases in float32 and bfloat16, gemma3-1b's training shapes in
-    bfloat16; dx within RMS_TOL, dscale within DSCALE_TOL of the float32
-    plain sum's largest value (plus bf16's rounding of each value), and
-    both the same bits on a second call. Then each training shape timed:
-    the kernel and the library's backward (``torch.autograd.grad`` through
-    ``F.rms_norm``, graphs built beforehand) in turns, the plain version,
-    profiler device times, and the bound, with inputs rotated out of L2."""
+    """rmsnorm's backward kernel against ``rmsnorm_backward_plain`` on each
+    route ``bwd_route`` picks: the sweep's cases in float32 and bfloat16
+    (d = 7 and bf16 d = 300 on the two_pass route, the rest on the tma
+    route), gemma3-1b's training shapes in bfloat16 and strided rows (the
+    final norm's last position); dx within RMS_TOL, dscale within
+    DSCALE_TOL of the float32 plain sum's largest value (plus bf16's
+    rounding of each value), both the same bits on a second call, one
+    launch counted on the expected route a call, and the tma route's
+    ticket back at 0. Then each training shape timed: the kernel and the
+    library's backward (``torch.autograd.grad`` through ``F.rms_norm``,
+    graphs built beforehand) in turns, the plain version, profiler device
+    times, the bound, and beside them the two_pass route's kernels on the
+    same rows (``two_pass_backward``) and the same grid over one row a CTA
+    (what no row count shrinks), with inputs rotated out of L2."""
     import torch
     import torch.nn.functional as F
 
@@ -948,34 +990,58 @@ def check_rmsnorm_backward() -> dict:
     errs, worst = [], 0.0
     cases = [(shape, dt) for shape in RMS_CASES for dt in (torch.float32, torch.bfloat16)]
     cases += [(shape, torch.bfloat16) for shape in RMS_BWD_TRAIN]
+    cases += [("strided", dt) for dt in (torch.float32, torch.bfloat16)]
+    routes_run = set()
     for shape, dt in cases:
-        x, s, dy = (t[0] if t.dim() > 1 else t for t in rms_bwd_inputs(shape, dt, g))
+        if shape == "strided":
+            full, s, _ = (t[0] if t.dim() > 1 else t
+                          for t in rms_bwd_inputs((BATCH, 16, 1152), dt, g))
+            x = full[:, -1:, :]
+            dy = torch.randn(x.shape, generator=g, device="cuda").to(dt)
+        else:
+            x, s, dy = (t[0] if t.dim() > 1 else t for t in rms_bwd_inputs(shape, dt, g))
+        _, _, rows, _, stride = rn._rows(x, s)
+        route = rn.bwd_route(rows, dy.contiguous(), s, stride)
+        before = dict(rn.backward_launches_by_route)
         dx, ds = rn._launch_backward(x, s, dy, 1e-6)
         dx2, ds2 = rn._launch_backward(x, s, dy, 1e-6)
         torch.cuda.synchronize()
         name = str(dt).removeprefix("torch.")
+        counted = {k: v - before[k] for k, v in rn.backward_launches_by_route.items()}
+        if counted != {k: 2 * (k == route) for k in counted}:
+            fail(f"rmsnorm backward {shape} {name}: launches by route {counted}, "
+                 f"expected 2 on {route}")
+        routes_run.add(route)
         if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
-            fail(f"rmsnorm backward {shape} {name}: two calls differ")
+            fail(f"rmsnorm backward {shape} {name} ({route}): two calls differ")
         want_dx, _ = rn.rmsnorm_backward_plain(x, s, dy)
         f32_ds = rn.rmsnorm_backward_plain(x.float(), s.float(), dy.float())[1]
         atol, rtol = RMS_TOL[name]
         diff = (dx.float() - want_dx.float()).abs()
         err = diff.max().item()
         if not (diff - rtol * want_dx.float().abs()).max().item() <= atol:
-            fail(f"rmsnorm backward {shape} {name}: dx error {err} beyond {atol} + "
-                 f"{rtol}*|dx|")
+            fail(f"rmsnorm backward {shape} {name} ({route}): dx error {err} beyond "
+                 f"{atol} + {rtol}*|dx|")
         ds_err = (ds.float() - f32_ds).abs()
         ds_tol = DSCALE_TOL * f32_ds.abs().max() + (
             2.0**-8 * f32_ds.abs() if dt == torch.bfloat16 else 0)
         if not bool((ds_err <= ds_tol).all()):
-            fail(f"rmsnorm backward {shape} {name}: dscale error "
+            fail(f"rmsnorm backward {shape} {name} ({route}): dscale error "
                  f"{ds_err.max().item()} beyond {DSCALE_TOL} of its largest value")
-        errs.append({"shape": shape, "dtype": name, "dx_max_abs_err": err,
+        errs.append({"shape": shape, "dtype": name, "route": route,
+                     "dx_max_abs_err": err,
                      "dscale_max_rel_err": (ds_err.max() / f32_ds.abs().max()).item()})
         if shape in RMS_BWD_TRAIN:
+            if route != "tma":
+                fail(f"rmsnorm backward {shape}: the training shape took the {route} route")
             worst = max(worst, err)
-    log(f"rmsnorm backward: {len(errs)} cases agree with the plain version, the "
-        "same bits on a second call")
+    if routes_run != set(rn.backward_launches_by_route):
+        fail(f"rmsnorm backward: the cases ran the routes {routes_run} only")
+    tickets = {k: int(t.item()) for k, (t, _) in rn._bwd_scratch_by.items()}
+    if any(tickets.values()):
+        fail(f"rmsnorm backward: a ticket was left at {tickets}")
+    log(f"rmsnorm backward: {len(errs)} cases agree with the plain version on both "
+        "routes, the same bits on a second call; tickets back at 0")
 
     per_shape = []
     for shape, n in RMS_BWD_TRAIN.items():
@@ -990,6 +1056,7 @@ def check_rmsnorm_backward() -> dict:
         kernel = rotating(lambda xi, dyi: rn._launch_backward(xi, s, dyi, 1e-6), sets)
         library = rotating(lambda xi, yi, dyi: torch.autograd.grad(
             yi, (xi, sg), dyi, retain_graph=True), lib_sets)
+        two_pass = rotating(lambda xi, dyi: two_pass_backward(xi, s, dyi), sets)
         ms, library_ms = time_pair_ms(kernel, library)
         row = {
             "shape": shape, "ms": ms, "library_ms": library_ms,
@@ -997,27 +1064,40 @@ def check_rmsnorm_backward() -> dict:
                 lambda xi, dyi: rn.rmsnorm_backward_plain(xi, s, dyi), sets)),
             "device_ms": device_ms(kernel, f"rmsnorm backward {rows}x{d}"),
             "library_device_ms": device_ms(library, f"F.rms_norm backward {rows}x{d}"),
+            "two_pass_ms": time_ms(two_pass),
+            "two_pass_device_ms": device_ms(two_pass, f"two_pass {rows}x{d}"),
         }
         del sets, lib_sets, xs, ys, x, dy
+        # the same grid over one row a CTA: the launch, the ring's first
+        # tile and the tail after the rows, which no row count shrinks
+        one = rms_bwd_inputs((rn._BWD_CTAS, d), torch.bfloat16, g, 4)
+        row["one_row_a_cta_device_ms"] = device_ms(rotating(
+            lambda xi, dyi: rn._launch_backward(xi, one[1], dyi, 1e-6),
+            [(one[0][i], one[2][i]) for i in range(4)]), f"tma, 264 rows of {d}")
+        del one
         row["bytes"] = (3 * rows * d + 2 * d) * 2      # x, dy, dx; scale, dscale
         row["flops"] = float(RMS_BWD_FLOPS * rows * d)
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], F32_FLOPS)
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
-        if row["bound_share"] > 1.0:
-            fail(f"rmsnorm backward {shape}: device time {row['device_ms']} ms is "
-                 f"below its bound {row['bound_ms']} ms")
+        for key in ("device_ms", "two_pass_device_ms"):
+            if row[key] < row["bound_ms"]:
+                fail(f"rmsnorm backward {shape}: {key} {row[key]} ms is below its bound "
+                     f"{row['bound_ms']} ms")
         row["weight"] = n
         per_shape.append(row)
         log(f"rmsnorm backward {shape} x{n}: kernel {row['ms']:.4f} ms a call (device "
             f"{row['device_ms'] * 1e3:.3f} us, {row['bound_share']:.1%} of the bound), "
             f"plain {row['plain_ms']:.4f} ms, F.rms_norm backward "
             f"{row['library_ms']:.4f} ms (device {row['library_device_ms'] * 1e3:.3f} us),"
-            f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+            f" bound {row['bound_ms']:.5f} ms ({row['bound_by']}); one row a CTA "
+            f"{row['one_row_a_cta_device_ms'] * 1e3:.3f} us; two_pass "
+            f"{row['two_pass_ms']:.4f} ms (device "
+            f"{row['two_pass_device_ms'] * 1e3:.3f} us)")
     torch.cuda.empty_cache()
     total = sum(RMS_BWD_TRAIN.values())
     totals = {key: sum(r[key] * r["weight"] for r in per_shape) / total
               for key in ("ms", "plain_ms", "library_ms", "device_ms",
-                          "library_device_ms")}
+                          "library_device_ms", "two_pass_ms", "two_pass_device_ms")}
     return {
         "name": "rmsnorm_backward",
         "route": "cuda",
@@ -1154,25 +1234,51 @@ def slots_equal(params, host) -> None:
 
 
 # --------------------------------------------------------------- phase 3
-def profiled(run, what: str) -> dict:
+def kernel_counts(prof, names) -> dict:
+    """{name: launches} of the card's kernels in a finished profile whose
+    names hold ``name<`` (a template's name), for each of ``names``."""
+    import torch
+
+    counts = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name + "<" in e.key:
+                    counts[name] += e.count
+    return counts
+
+
+def profiled(run, what: str, count=(), attempts: int = 3) -> dict:
     """``run()`` under torch.profiler: device time by kernel and the card's
     busy share of the wall time (the profiler's own cost lengthens the
-    wall, so the idle share it gives is an upper bound). ``run`` ends in a
-    synchronisation and returns a dict of its own figures. Only the card's
-    activity is traced: host-side operator events added nothing read here
-    and took most of a profile's time to collect (tens of seconds at
-    zamba2-7b's 100,000 launches of a generate)."""
+    wall, so the idle share it gives is an upper bound), and the launches
+    of the kernels named in ``count`` (``kernel_counts``). ``run`` ends in
+    a synchronisation and returns a dict of its own figures. A profile
+    that holds no device event at all is logged, kept in
+    ``EMPTY_PROFILES`` (as ``device_ms`` keeps its own) and ``run`` is
+    profiled again, up to ``attempts`` times; the last profile is the one
+    read. Only the card's activity is traced: host-side operator events
+    added nothing read here and took most of a profile's time to collect
+    (tens of seconds at zamba2-7b's 100,000 launches of a generate)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        figures = run()
-        wall = time.perf_counter() - t0
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            figures = run()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        cuda_events = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
+        if cuda_events or attempt == attempts:
+            break
+        EMPTY_PROFILES.append({"what": what, "attempt": attempt, "events": len(events),
+                               "cuda_events": 0})
+        log(f"profiled({what}): profile {attempt} of {attempts} holds no device event")
     kernels = [
         (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
+        for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
     ]
@@ -1183,6 +1289,7 @@ def profiled(run, what: str) -> dict:
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (wall * 1e3) if busy_ms else None,
         "top_kernels_ms": [(k[:90], ms, n) for k, ms, n in kernels[:20]],
+        "kernel_counts": kernel_counts(prof, count),
     }
     log(f"profiled {what}: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_ms:.1f} ms, idle share {out['idle_share']}")
@@ -2323,6 +2430,18 @@ def train_grad_check(cfg, params, batch) -> dict:
     return out
 
 
+def check_backward_kernels(counts: dict, calls: int, what: str) -> None:
+    """The profiler's launches of the backward's kernels (``kernel_counts``
+    of RMS_BWD_KERNELS) over ``calls`` backward calls: each call one kernel,
+    on the tma route."""
+    want = {RMS_BWD_KERNELS["tma"]: calls, RMS_BWD_KERNELS["two_pass"]: 0,
+            RMS_BWD_KERNELS["two_pass sums"]: 0}
+    if counts != want:
+        fail(f"{what}: the profiler's backward kernels {counts}, expected {want} "
+             "(one tma kernel a call)")
+    log(f"{what}: the profiler shows {calls} backward kernels, one a call, all tma")
+
+
 def train_path() -> dict:
     """Phase 11: gemma3-1b trained at its published widths through the
     port's Trainer: publish, an epoch-path start (opt/* INIT), steps, the
@@ -2338,6 +2457,7 @@ def train_path() -> dict:
     from repro_torch.data import make_batch, to_device
     from repro_torch.kernels import launch_counts, zero_launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
     from repro_torch.launch.steps import make_train_fn
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainConfig, Trainer
@@ -2387,6 +2507,7 @@ def train_path() -> dict:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+        routes = dict(rn.backward_launches_by_route)
         per_step, steps_run = train_rms_launches(cfg), len(res.losses)
         want = {"flash_attention": 0, "rmsnorm": per_step["forward"] * steps_run,
                 "rmsnorm_backward": per_step["backward"] * steps_run,
@@ -2398,6 +2519,8 @@ def train_path() -> dict:
             f"step, remat policy {cfg.remat_policy!r}, x {steps_run} steps run)")
         if got != want:
             fail(f"{cfg.name} training: kernel launches {got} != {want}")
+        if routes != {"tma": want["rmsnorm_backward"], "two_pass": 0}:
+            fail(f"{cfg.name} training: backward launches by route {routes}, not all tma")
         if not all(np.isfinite(res.losses)):
             fail(f"{cfg.name} training: a loss is not finite: {res.losses}")
         resumed = [st["resume_step"] for st in res.startup_stats]
@@ -2447,7 +2570,9 @@ def train_path() -> dict:
                           "cuda")
         profile = profiled(
             lambda: {"loss": float(step_fn(tr.params, tr.opt_state, batch)[2]["loss"])},
-            f"{cfg.name} train step")
+            f"{cfg.name} train step", count=RMS_BWD_KERNELS.values())
+        check_backward_kernels(profile["kernel_counts"], per_step["backward"],
+                               f"{cfg.name} profiled train step")
 
         # steady: every step but the process's first and step 3 of the first
         # start, which ran while the step-3 checkpoint published
@@ -2457,7 +2582,8 @@ def train_path() -> dict:
         flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
         restart = res.startup_stats[1]
         out = {
-            "launches": got, "launches_per_step": per_step, "steps_run": steps_run,
+            "launches": got, "backward_routes": routes, "launches_per_step": per_step,
+            "steps_run": steps_run,
             "losses": res.losses, "step_s": res.step_s, "steady_step_s": step_s,
             "step_during_checkpoint_publish_s": overlapped,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
@@ -2581,27 +2707,39 @@ def mesh_serve(cfg, mesh, params) -> dict:
 def mesh_train(cfg, mesh, root) -> dict:
     """Phase 12's training half: a meshless ``Trainer`` and one on ``mesh``
     over the same published world, MESH_TRAIN_STEPS steps each and no
-    checkpoint: the same loss bits; the mesh run's launches exact and its
-    params DTensors over views of its arena, trained in place."""
+    checkpoint: the same loss bits; the mesh run's launches exact (every
+    backward on the tma route) and its params DTensors over views of its
+    arena, trained in place. Then one more step of ``build_step``'s train
+    step on the mesh trainer's params, profiled: one tma backward kernel
+    for each of its backward calls."""
     import torch
 
     from repro_torch.configs import ShapeConfig
+    from repro_torch.data import make_batch, to_device
     from repro_torch.kernels import launch_counts, zero_launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.launch.steps import build_step
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainConfig, Trainer
 
     shape = ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train")
     tcfg = TrainConfig(steps=MESH_TRAIN_STEPS, checkpoint_every=10**9,
                        opt=OptConfig(**TRAIN_OPT))
+    per_step = train_rms_launches(cfg)
     runs = {}
     for name, m in (("meshless", None), ("mesh", mesh)):
         tr = Trainer(root, cfg, shape, tcfg, device="cuda", mesh=m)
         zero_launch_counts()
         res, wall = _timed_cuda(tr.run)
         got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+        routes = dict(rn.backward_launches_by_route)
+        if routes != {"tma": per_step["backward"] * MESH_TRAIN_STEPS, "two_pass": 0}:
+            fail(f"{cfg.name} {name} training: backward launches by route {routes}, "
+                 "not all tma")
         runs[name] = {"losses": res.losses, "step_s": res.step_s, "wall_s": wall,
-                      "launches": got, "start": res.startup_stats[0]}
+                      "launches": got, "backward_routes": routes,
+                      "start": res.startup_stats[0]}
         if m is not None:
             arena = tr.image.arena
             lo, hi = arena.data_ptr(), arena.data_ptr() + arena.numel()
@@ -2615,9 +2753,19 @@ def mesh_train(cfg, mesh, root) -> dict:
             local = tr.params["final_norm/scale"].to_local()
             if not torch.equal(view, local.detach().reshape(-1).view(torch.uint8)):
                 fail(f"{cfg.name} mesh training: the arena does not hold the trained params")
+            step = build_step(cfg, shape, mesh, opt_cfg=tcfg.opt).jitted
+            batch = to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+                                         seq_len=TRAIN_SEQ, step=MESH_TRAIN_STEPS,
+                                         seed=tcfg.seed), "cuda")
+            profile = profiled(
+                lambda: {"loss": float(step(tr.params, tr.opt_state, batch)[2]["loss"])},
+                f"{cfg.name} mesh train step", count=RMS_BWD_KERNELS.values())
+            check_backward_kernels(profile["kernel_counts"], per_step["backward"],
+                                   f"{cfg.name} profiled mesh train step")
+            runs[name]["profile"] = profile
+            del step, batch
         del tr
         torch.cuda.empty_cache()
-    per_step = train_rms_launches(cfg)
     want = {"flash_attention": 0, "rmsnorm": per_step["forward"] * MESH_TRAIN_STEPS,
             "rmsnorm_backward": per_step["backward"] * MESH_TRAIN_STEPS,
             "paged_reloc_copy": 1, "non_causal": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
@@ -2631,7 +2779,8 @@ def mesh_train(cfg, mesh, root) -> dict:
     if not all(map(math.isfinite, runs["mesh"]["losses"])):
         fail(f"{cfg.name} mesh training: a loss is not finite")
     steady = {k: statistics.median(r["step_s"][1:]) for k, r in runs.items()}
-    out = {"launches": got, "launches_per_step": per_step, "runs": runs,
+    out = {"launches": got, "backward_routes": runs["mesh"]["backward_routes"],
+           "launches_per_step": per_step, "runs": runs,
            "step_s": steady["mesh"], "plain_step_s": steady["meshless"],
            "step_overhead_s": steady["mesh"] - steady["meshless"],
            "first_step_s": runs["mesh"]["step_s"][0],
@@ -2814,14 +2963,16 @@ def main() -> None:
              "mesh train": detail["mesh"]["train"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     kernels[0]["non_causal_by_path"] = {p: c.get("non_causal", 0) for p, c in paths.items()}
+    kernels[3]["launches_by_route"] = {"train": detail["train"]["backward_routes"],
+                                       "mesh train": detail["mesh"]["train"]["backward_routes"]}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             fail(f"{k['name']} was not launched on the main path")
     detail["kernels"] = kernels
-    log(f"device_ms: {len(EMPTY_PROFILES)} profiles recorded no device time "
-        "and were taken again")
+    log(f"device_ms and profiled: {len(EMPTY_PROFILES)} profiles recorded no device "
+        "time and were taken again")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     # device_ms: the profiler's device time a launch, beside "ms" (CUDA
     # events over back-to-back calls, the host's rate where it is slower);

@@ -35,3 +35,5 @@ def zero_launch_counts() -> None:
     rn.launches = rn.backward_launches = 0
     for route in fa.launches_by_route:
         fa.launches_by_route[route] = 0
+    for route in rn.backward_launches_by_route:
+        rn.backward_launches_by_route[route] = 0

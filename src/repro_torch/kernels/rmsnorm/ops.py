@@ -16,15 +16,27 @@ checks.
 kernel for CUDA tensors, or raises; ``launches`` counts kernel launches.
 
 Training: on CUDA, when ``x`` or ``scale`` requires a gradient (and grad
-mode is on), ``rmsnorm`` goes through ``_RMSNorm``, whose backward is the
-hand-written ``rms_backward`` of the same source: the gradient JAX takes
-of the reference's jnp ``rms_norm`` (``repro/models/common.py:25``; the
-reference has no Pallas backward). It saves ``x`` and ``scale`` and
-recomputes the row's ``rsqrt`` from ``x``; ``dscale`` is summed without
-atomics, so it is the same bits on every call. ``backward_launches``
-counts its calls (each is two kernels: the rows, then the column sums).
-Under ``no_grad`` and ``inference_mode`` the forward call is the lean one
-above.
+mode is on), ``rmsnorm`` goes through ``_RMSNorm``, whose backward is
+hand-written in the same source: the gradient JAX takes of the
+reference's jnp ``rms_norm`` (``repro/models/common.py:25``; the reference
+has no Pallas backward). It saves ``x`` and ``scale`` and recomputes the
+row's ``rsqrt`` from ``x``; ``dscale`` is summed in a fixed order without
+float atomics, so it is the same bits on every call. A backward is one
+ctypes call on one of two routes, chosen by ``bwd_route`` from the dtype,
+d, the row stride and the addresses, never on failure:
+
+* ``"tma"`` (``rms_backward_tma``): rows that TMA can copy (16-byte
+  aligned bases, row stride and row bytes; up to 160 16-byte vectors a
+  row), every training shape of gemma3-1b. One launch, whose grid
+  ``_bwd_plan(n, d, itemsize)`` sets from those three alone, and a ticket
+  (one int32 kept per device and stream, ``_bwd_scratch``) that elects
+  the last cluster of CTAs to add the column partials.
+* ``"two_pass"`` (``rms_backward``): every other row (e.g. d = 7 or 300
+  in bf16). Two launches: the rows, then the column sums.
+
+``backward_launches`` counts backward calls, ``backward_launches_by_route``
+each route's. Under ``no_grad`` and ``inference_mode`` the forward call is
+the lean one above.
 
 DTensors (a step on a device mesh, ``launch/steps.py``) are unwrapped with
 ``local_map``, so the kernel only ever sees each device's local rows. The
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -51,12 +64,21 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 backward_launches = 0
+backward_launches_by_route = {"tma": 0, "two_pass": 0}
 _lib = None          # the ctypes library, bound at the first launch
 _fn = None           # its rms_forward, argtypes set once
-_bwd = None          # its rms_backward
-# rows of the backward's float32 column partials: a sixteenth of the rows
-# (the partials stay small beside x, dy and dx), a multiple of 4, 4..4096
+_bwd = None          # its rms_backward (the two_pass route)
+_bwd_tma = None      # its rms_backward_tma (the tma route)
+# rows of the two_pass route's float32 column partials: a sixteenth of the
+# rows (the partials stay small beside x, dy and dx), a multiple of 4, 4..4096
 _ROWS_PER_PART, _MAX_PARTS = 16, 4096
+# the tma route's plan (rmsnorm.cu's note); constants, never read from a card
+_BWD_CTAS = 264          # two CTAs for each of the H100's 132 SMs
+_BWD_CLUSTER = 8         # CTAs a thread block cluster, one partial row each
+_BWD_WARPS = 4           # consumer warps a CTA
+_BWD_STAGES = 3          # tiles in the ring
+_BWD_MAX_VECTORS = 160   # 16-byte vectors a row (a lane holds 5 of x and of dy)
+_bwd_scratch_by = {}     # (device index, stream) -> (ticket, partials)
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
@@ -82,8 +104,67 @@ def rmsnorm_backward_plain(x, scale, dy, *, eps: float = 1e-6):
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
+class BwdPlan(NamedTuple):
+    """The tma route's launch: ``ctas`` CTAs in clusters of ``cluster``,
+    ``warps`` consumer warps a CTA (and the producer's), a ring of
+    ``stages`` tiles of ``rows_per_stage`` rows of x and of dy,
+    ``smem_bytes`` of shared memory a CTA."""
+    ctas: int
+    cluster: int
+    warps: int
+    rows_per_stage: int
+    stages: int
+    smem_bytes: int
+
+
+def _bwd_plan(n: int, d: int, itemsize: int) -> BwdPlan:
+    """The tma route's grid and ring, from (n, d, itemsize) alone: the
+    partition is what makes dscale's sums the same on every call. 264 CTAs
+    once n allows (every SM of an H100 two), else one a row, rounded up to
+    whole clusters. A lane holds up to 5 vectors of a row; a tile holds 4,
+    2 or 1 rows for each consumer warp (rmsnorm.cu's tma_rows_per_warp),
+    and rows of 3 or more vectors a lane take 2 consumer warps a CTA, not 4
+    (their registers leave room for fewer warps on an SM)."""
+    lanes = -(-d * itemsize // 16 // 32)            # vectors a lane holds
+    warps = _BWD_WARPS if lanes <= 2 else _BWD_WARPS // 2
+    rows = warps * (4 if lanes <= 1 else 2 if lanes == 2 else 1)
+    ctas = _BWD_CTAS if n >= _BWD_CTAS else -(-n // _BWD_CLUSTER) * _BWD_CLUSTER
+    smem = _BWD_STAGES * 2 * rows * d * itemsize + 16 * _BWD_STAGES + 16
+    return BwdPlan(ctas, _BWD_CLUSTER, warps, rows, _BWD_STAGES, smem)
+
+
+def bwd_route(rows, dy, scale, stride: int) -> str:
+    """``"tma"`` where the backward's rows can go through TMA: ``rows``
+    (whose ``data_ptr`` is x's first row, of d = ``rows.shape[-1]``
+    elements, ``stride`` elements apart) and ``dy`` on 16-byte aligned
+    bases, the row stride and row bytes multiples of 16, at most
+    ``_BWD_MAX_VECTORS`` vectors a row (whose ring always fits a CTA's
+    shared memory), and scale aligned wherever the forward needs that for
+    its 16-byte path (so r is the forward's, bit for bit); else
+    ``"two_pass"``."""
+    size, d = rows.element_size(), rows.shape[-1]
+    vec = 16 // size
+    ok = (d % vec == 0 and d // vec <= _BWD_MAX_VECTORS and stride % vec == 0
+          and stride >= d and rows.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+          and (scale.element_size() != size or scale.data_ptr() % 16 == 0))
+    return "tma" if ok else "two_pass"
+
+
+def _bwd_scratch(device, stream: int, numel: int):
+    """(ticket, float32 partials of at least ``numel``) kept for this
+    device and stream: the ticket is zeroed once and every launch leaves it
+    at 0; two streams never share one."""
+    key = (device.index, stream)
+    got = _bwd_scratch_by.get(key)
+    if got is None or got[1].numel() < numel:
+        ticket = got[0] if got else torch.zeros(1, dtype=torch.int32, device=device)
+        got = _bwd_scratch_by[key] = (
+            ticket, torch.empty(numel, dtype=torch.float32, device=device))
+    return got
+
+
 def _bind():
-    global _lib, _fn, _bwd
+    global _lib, _fn, _bwd, _bwd_tma
     from repro_torch.kernels.build import load_library
 
     lib = load_library(SOURCE)
@@ -94,9 +175,13 @@ def _bind():
     lib.rms_backward.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
                                  i32, i64, ctypes.c_float, ptr]
     lib.rms_backward.restype = i32
+    lib.rms_backward_tma.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                                     i32, i64, i32, i32, i32, i32, i32, ctypes.c_float,
+                                     ptr]
+    lib.rms_backward_tma.restype = i32
     lib.rms_error_string.argtypes = [i32]
     lib.rms_error_string.restype = ctypes.c_char_p
-    _lib, _fn, _bwd = lib, lib.rms_forward, lib.rms_backward
+    _lib, _fn, _bwd, _bwd_tma = lib, lib.rms_forward, lib.rms_backward, lib.rms_backward_tma
 
 
 def _rows(x, scale):
@@ -136,9 +221,20 @@ def _launch(x, scale, eps):
     return out
 
 
+def _two_pass(xc, wc, rows, dy, scale, dx, dscale, n, d, stride, eps, stream) -> int:
+    """The two_pass route's launches (the rows, then the column sums) into
+    ``dx`` and ``dscale``; its cudaError_t (0 = launched). The arguments
+    are ``_launch_backward``'s, checked there."""
+    parts = min(_MAX_PARTS, max(4, -(-n // _ROWS_PER_PART)))
+    parts += -parts % 4
+    part = torch.empty((parts, d), dtype=torch.float32, device=dx.device)
+    return _bwd(xc, wc, rows.data_ptr(), dy.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+                dscale.data_ptr(), part.data_ptr(), parts, n, d, stride, eps, stream)
+
+
 def _launch_backward(x, scale, dy, eps):
-    """(dx, dscale) from the ``rms_backward`` kernel: dx contiguous in x's
-    shape and dtype, dscale in scale's dtype."""
+    """(dx, dscale) from the backward kernel on ``bwd_route``'s route: dx
+    contiguous in x's shape and dtype, dscale in scale's dtype."""
     global backward_launches
     xc, wc, rows, n, stride = _rows(x, scale)
     d = x.shape[-1]
@@ -150,19 +246,25 @@ def _launch_backward(x, scale, dy, eps):
     if n == 0 or d == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
-    parts = min(_MAX_PARTS, max(4, -(-n // _ROWS_PER_PART)))
-    parts += -parts % 4
-    part = torch.empty((parts, d), dtype=torch.float32, device=x.device)
     if _bwd is None:
         _bind()
-    dev = x.get_device()
-    err = _bwd(xc, wc, rows.data_ptr(), dy.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-               dscale.data_ptr(), part.data_ptr(), parts, n, d, stride, eps,
-               _raw_stream(dev))
+    stream = _raw_stream(x.get_device())
+    route = bwd_route(rows, dy, scale, stride)
+    if route == "tma":
+        plan = _bwd_plan(n, d, x.element_size())
+        ticket, part = _bwd_scratch(x.device, stream, plan.ctas // plan.cluster * d)
+        err = _bwd_tma(xc, wc, rows.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+                       dx.data_ptr(), dscale.data_ptr(), part.data_ptr(),
+                       ticket.data_ptr(), n, d, stride, plan.ctas, plan.cluster,
+                       plan.warps, plan.rows_per_stage, plan.stages, eps, stream)
+    else:
+        err = _two_pass(xc, wc, rows, dy, scale, dx, dscale, n, d, stride, eps, stream)
     if err:
-        raise RuntimeError(f"rmsnorm backward launch failed for x {tuple(x.shape)} "
-                           f"{x.dtype}: {_lib.rms_error_string(err).decode()}")
+        raise RuntimeError(f"rmsnorm backward launch ({route}) failed for x "
+                           f"{tuple(x.shape)} {x.dtype}: "
+                           f"{_lib.rms_error_string(err).decode()}")
     backward_launches += 1
+    backward_launches_by_route[route] += 1
     return dx, dscale
 
 

@@ -187,10 +187,25 @@ def make_prefill_fn(cfg, *, impl: str = "chunked"):
     return prefill_step
 
 
+def greedy_token(logits):
+    """The argmax over the last axis, the lowest index among ties, as
+    ``jnp.argmax``. On a DTensor it is a max and then a min over the
+    vocabulary, each reduced as a partial max / min over the mesh axes
+    that shard it. (DTensor's own argmax all-gathers each shard's winner
+    and fails at batch 1: its gathered result does not fit the view it
+    takes.)"""
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1)
+    vocab = logits.shape[-1]
+    top = logits.amax(dim=-1, keepdim=True)
+    ids = torch.arange(vocab, device=logits.device)
+    return torch.where(logits == top, ids, vocab).amin(dim=-1)
+
+
 def make_decode_fn(cfg):
     def serve_step(params, cache, tokens):
         logits, cache = models.decode_step(cfg, params, cache, tokens)
-        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        next_tok = greedy_token(logits[:, -1:]).to(torch.int32)
         return next_tok, cache
 
     return serve_step

@@ -230,10 +230,13 @@ def _bwd_inputs(cuda, shape, dt, seed=0):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_kernel_matches_plain_on_card(cuda, shape, dt):
     x, s, dy = _bwd_inputs(cuda, shape, dt)
-    n = rn.backward_launches
+    _, _, rows, _, stride = rn._rows(x, s)
+    route = rn.bwd_route(rows, dy, s, stride)
+    n, by_route = rn.backward_launches, dict(rn.backward_launches_by_route)
     dx, ds = rn._launch_backward(x, s, dy, 1e-6)
     torch.cuda.synchronize()
     assert rn.backward_launches == n + 1
+    assert rn.backward_launches_by_route == {k: v + (k == route) for k, v in by_route.items()}
     want_dx, want_ds = rn.rmsnorm_backward_plain(x, s, dy)
     assert dx.dtype == dt and ds.dtype == dt and dx.shape == x.shape
     atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (3e-2, 2.0**-7)
@@ -271,6 +274,42 @@ def test_rmsnorm_backward_dscale_is_the_same_bits_on_every_call(cuda, shape):
     s32 = s.float()
     c = rn._launch_backward(x, s32, dy, 1e-6)[1]
     assert torch.equal(c, rn._launch_backward(x, s32, dy, 1e-6)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 1152), (32768, 256), (8192, 256)])
+def test_rmsnorm_backward_training_shapes_are_one_tma_kernel_on_card(cuda, shape):
+    """gemma3-1b's training shapes: one kernel a call (the profiler's), on
+    the tma route, and the ticket of the stream back at 0; a second stream
+    gets a ticket of its own and the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, s, dy = _bwd_inputs(cuda, shape, torch.bfloat16, seed=6)
+    want = rn._launch_backward(x, s, dy, 1e-6)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile may record no device event at all: take it again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tma = rn.backward_launches_by_route["tma"]
+            got = rn._launch_backward(x, s, dy, 1e-6)
+            torch.cuda.synchronize()
+        assert rn.backward_launches_by_route["tma"] == tma + 1
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    names = [k for k in kernels if "rmsnorm" in k]
+    assert len(names) == 1 and "rmsnorm_bwd_tma_kernel<" in names[0], kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = rn._launch_backward(x, s, dy, 1e-6)
+    torch.cuda.synchronize()
+    for a, b in zip((want, got, other), (got, other, want)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert {k[1] for k in rn._bwd_scratch_by if k[0] == x.get_device()} >= {
+        stream, side.cuda_stream}
+    assert all(t.item() == 0 for t, _ in rn._bwd_scratch_by.values())
 
 
 @pytest.mark.cuda

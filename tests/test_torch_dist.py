@@ -7,12 +7,15 @@ own multi-device path refuses every mesh larger than 1x1 under this JAX:
 Each check starts ``tests/torch_dist_worker.py`` once per rank and reads
 what rank 0 wrote: ``build_step``'s train, prefill and decode steps on a
 2x2 mesh (4 ranks) and on a 1x1 mesh (the same bits as the meshless
-steps), the ``Trainer`` on a 1x2 mesh against the reference ``Trainer``,
+steps), a greedy decode step at batch 1 over a sharded vocabulary (ties
+planted across shards), the ``Trainer`` on a 1x2 mesh against the
+reference ``Trainer``,
 ``adamw_update``'s global norm over sharded gradients, and
 ``int8_allreduce_mean``."""
 
 from __future__ import annotations
 
+import functools
 import os
 import socket
 import subprocess
@@ -145,6 +148,53 @@ def test_build_step_on_a_1x1_mesh_gives_the_meshless_bits(tmp_path, arch):
         assert torch.equal(got[key], plain[key]), key
     for n, t in plain["params"].items():
         assert torch.equal(got["params"][n], t), n
+
+
+def _ref_greedy(rcfg, weights, prompt):
+    """The reference's unsharded prefill, its greedy token, then one
+    ``serve_step``: (the step's token, the step's logits)."""
+    params = {n: jnp.asarray(v) for n, v in weights.items()}
+    logits, cache = jax.jit(ref_prefill_fn(rcfg))(params, {"tokens": jnp.asarray(prompt)})
+    tok = jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)
+    step_logits, _ = jax.jit(functools.partial(ref_models.decode_step, rcfg))(
+        params, cache, tok)
+    nxt, _ = jax.jit(ref_decode_fn(rcfg))(params, cache, tok)
+    return int(np.asarray(nxt)[0, 0]), np.asarray(step_logits)[0, -1], int(tok[0, 0])
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+def test_greedy_decode_over_a_sharded_vocabulary_matches_the_reference(tmp_path, mesh):
+    """Batch 1, the logits' vocabulary sharded over the "model" axis (4 or
+    2 ways): the decode step's token is the reference's unsharded
+    ``serve_step`` token. Then ties are planted: two embedding rows (tied to
+    the output) in different quarters of the vocabulary, neither in the
+    prompt, both set to twice the winner's row, so the step's largest logit
+    occurs twice, on two shards; the lower index wins, as ``jnp.argmax``
+    picks it."""
+    rcfg, inp = _inputs("gemma3-1b")
+    prompt = inp["batch"]["tokens"][:1]
+    base = inp["params"]
+    want, _, first = _ref_greedy(rcfg, base, prompt)
+    q = rcfg.vocab_size // 4
+    used = {want, first, *prompt.ravel().tolist()}
+    weight_sets, wants = [base], [want]
+    for lo, hi in ((0, 3), (1, 2)):              # quarters of the vocabulary
+        a = next(k for k in range(lo * q, (lo + 1) * q) if k not in used)
+        b = next(k for k in reversed(range(hi * q, (hi + 1) * q)) if k not in used)
+        planted = dict(base)
+        emb = planted["embed/tokens"].copy()
+        emb[a] = emb[b] = 2 * emb[want]
+        planted["embed/tokens"] = emb
+        tok, lg, _ = _ref_greedy(rcfg, planted, prompt)
+        assert lg[a] == lg[b] == lg.max() and tok == a
+        weight_sets.append(planted)
+        wants.append(tok)
+    got = _run(tmp_path, 4, "greedy", {"params": weight_sets, "tokens": prompt},
+               "gemma3-1b", mesh)
+    assert got["tokens"][:, 0].tolist() == wants
+    # the step's logits were sharded over the vocabulary by the "model" axis
+    assert all(pl[1] == str(Shard(2)) for pl in got["logit_placements"]), got
+
 
 
 @pytest.mark.parametrize("fail_at", [-1, 4], ids=["steady", "failure-at-4"])

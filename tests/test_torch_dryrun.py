@@ -31,35 +31,41 @@ MESH = SimpleNamespace(axis_names=("data", "model"), devices=np.empty((2, 4), np
 N_DEV = 8
 
 
-def _cli(tmp_path, *args, timeout=600):
+def _cli(tmp_path, *args, mesh="2x4", timeout=600):
     out = tmp_path / "cells.jsonl"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "2x4", "--force",
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", mesh, "--force",
          "--out", str(out), *args],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=timeout)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     return json.loads(out.read_text().splitlines()[-1])
 
 
-def _local_bytes(shape, dtype, axes, rules) -> int:
-    """Bytes one device of the 2x4 mesh holds under the reference's
-    ``spec_for``."""
-    sizes = dict(zip(MESH.axis_names, MESH.devices.shape))
-    entries = tuple(ref_spec_for(axes, shape, MESH, rules)) + (None,) * len(shape)
+def _mesh(spec: str):
+    """A stand-in for the reference's mesh of shape ``spec`` ("2x4")."""
+    return SimpleNamespace(axis_names=("data", "model"),
+                           devices=np.empty(tuple(map(int, spec.split("x"))), np.int8))
+
+
+def _local_bytes(shape, dtype, axes, rules, mesh=MESH) -> int:
+    """Bytes one device of ``mesh`` (the 2x4 mesh unless given) holds under
+    the reference's ``spec_for``."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    entries = tuple(ref_spec_for(axes, shape, mesh, rules)) + (None,) * len(shape)
     n = 1
     for d, ax in zip(shape, entries):
         n *= d // sizes[ax] if ax else d
     return n * np.dtype(dtype).itemsize
 
 
-def _ref_argument_bytes(arch, shape_name, rules=None) -> int:
+def _ref_argument_bytes(arch, shape_name, rules=None, mesh=MESH) -> int:
     cfg, shape = ref_config(arch), ref_shape(shape_name)
     specs = ref_models.param_specs(cfg)
     total = sum(_local_bytes(s.shape, "uint16" if s.dtype == "bfloat16" else s.dtype,
-                             s.axes, rules) for s in specs.values())
+                             s.axes, rules, mesh) for s in specs.values())
     if shape.kind == "train":        # float32 moments beside each param, the step
-        total += 2 * sum(_local_bytes(s.shape, "float32", s.axes, rules)
+        total += 2 * sum(_local_bytes(s.shape, "float32", s.axes, rules, mesh)
                          for s in specs.values()) + 4
     ins, axes = ref_models.input_specs(cfg, shape), ref_models.input_axes(cfg, shape)
     for k, v in ins.items():
@@ -67,7 +73,7 @@ def _ref_argument_bytes(arch, shape_name, rules=None) -> int:
         for n, leaf in leaves:
             ax = axes[k][n] if n is not None else axes[k]
             dt = "uint16" if leaf.dtype.name == "bfloat16" else leaf.dtype.name
-            total += _local_bytes(leaf.shape, dt, ax, rules)
+            total += _local_bytes(leaf.shape, dt, ax, rules, mesh)
     return total
 
 
@@ -115,6 +121,20 @@ def test_dryrun_cli_train_cell_with_the_cost_probe(tmp_path):
     probe = rec["cost_probe"]
     assert "error" not in probe and probe["full_counts"] == [22, 4]
     assert probe["roofline"]["flops"] == pytest.approx(roof["flops"], rel=1e-9)
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+def test_dryrun_long_500k_decode_over_a_sharded_vocabulary(tmp_path, mesh):
+    """gemma3-1b, long_500k (batch 1, the CLI's default rules): the decode
+    step's greedy token is an argmax over logits whose vocabulary the
+    "model" axis shards; it lowers and the step reports ``ok``, as the
+    reference's ``jnp.argmax`` lowers."""
+    rec = _cli(tmp_path, "--arch", "gemma3-1b", "--shape", "long_500k", "--no-probe",
+               mesh=mesh)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["n_devices"] == 4 and rec["roofline"]["hbm_bytes"] > 0
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == _ref_argument_bytes(
+        "gemma3-1b", "long_500k", None, _mesh(mesh))
 
 
 _PROBE_3 = r"""

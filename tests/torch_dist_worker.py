@@ -8,8 +8,10 @@ It imports torch and the port only (no JAX):
 
 Cases: ``steps`` (``build_step``'s train, prefill and decode steps on a
 mesh; on a one-device mesh also the meshless steps in this process),
-``trainer`` (the ``Trainer`` on a mesh), ``trainer_local`` (a
-meshless ``Trainer`` and one on a 1x1 mesh over one world), ``int8`` (``int8_allreduce_mean``),
+``greedy`` (a prefill and a greedy decode step at batch 1 on a mesh that
+shards the vocabulary, for several weight sets), ``trainer`` (the
+``Trainer`` on a mesh), ``trainer_local`` (a meshless ``Trainer`` and one
+on a 1x1 mesh over one world), ``int8`` (``int8_allreduce_mean``),
 ``norm`` (``adamw_update``'s global norm over sharded gradients).
 """
 
@@ -93,6 +95,42 @@ def case_steps(inp, arch, spec):
     return out
 
 
+def case_greedy(inp, arch, spec):
+    """For each weight set in ``inp["params"]``: ``build_step``'s prefill of
+    the prompt at batch 1, its greedy token from the gathered logits, then
+    one decode step, whose token is the argmax over logits the mesh's
+    "model" axis shards. Returns the decode tokens and the placements of
+    the decode's logits."""
+    cfg = get_config(arch, smoke=True)
+    mesh = mesh_from_spec(spec, "cpu")
+    specs = models.param_specs(cfg)
+    prompt = torch.from_numpy(inp["tokens"])
+    B, S = prompt.shape
+    prefill = build_step(cfg, ShapeConfig("p", S, B, "prefill"), mesh, impl="kernel")
+    decode = build_step(cfg, ShapeConfig("d", S, B, "decode"), mesh)
+    seen = []
+    models_decode = models.decode_step
+
+    def spy(*a, **k):                    # the placements argmax reduces over
+        logits, cache = models_decode(*a, **k)
+        seen.append([str(x) for x in logits.placements])
+        return logits, cache
+
+    toks = []
+    with torch.no_grad():
+        for weights in inp["params"]:
+            plain = params_from_numpy(weights, specs, device="cpu")
+            logits, cache = prefill.jitted(plain, {"tokens": prompt})
+            tok = torch.argmax(_full(logits)[:, -1:], -1).to(torch.int32)
+            models.decode_step = spy
+            try:
+                tok, _ = decode.jitted(plain, cache, tok)
+            finally:
+                models.decode_step = models_decode
+            toks.append(_full(tok))
+    return {"tokens": torch.cat(toks, 0), "logit_placements": seen}
+
+
 def case_trainer(inp, arch, spec, registry, fail_at):
     from repro_torch.train import TrainConfig, Trainer
 
@@ -165,7 +203,7 @@ def case_norm(inp, spec):
             "params": {n: _full(t) for n, t in p.items()}}
 
 
-CASES = {"steps": case_steps, "trainer": case_trainer,
+CASES = {"steps": case_steps, "greedy": case_greedy, "trainer": case_trainer,
          "trainer_local": case_trainer_local, "int8": case_int8, "norm": case_norm}
 
 
