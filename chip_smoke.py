@@ -95,10 +95,11 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
      one re-route and every stream whole.
    The flip-window latencies include the commit's wall time: the
    dispatcher runs ``rollover_fn`` synchronously, as the reference's does;
-7. olmoe-1b-7b at its published widths (16 layers, d 2048, 64 experts
-   top-8, bf16, random weights from seed 0) in a fresh Workspace: phase
-   3's static batch (exactly 1 paged copy, 16 flash launches a prefill, all
-   wgmma, 65 rmsnorm launches a prefill and a decode step, every slot
+7. olmoe-1b-7b at its published widths and 8 of its 16 layers (d 2048,
+   64 experts top-8, bf16, random weights from seed 0) in a fresh
+   Workspace: phase 3's static batch (exactly 1 paged copy, 8 flash
+   launches a prefill, all wgmma, 33 rmsnorm launches a prefill and a
+   decode step, every slot
    byte-equal to the host image); each MoE layer of the kernel-path
    prefill held against an independent host routing (stable top-k, slot
    places, capacity per row: exactly equal) and a float32 FFN per expert
@@ -122,12 +123,11 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    decode step, byte-equal slots, prefill logits within 1.5x the bf16
    plain run's error of a float32 run, tokens checked; then the
    mixed-length ``serve_loop``;
-10. zamba2-7b at its published widths (81 mamba layers, d 3584, 112 SSM
-   heads, state 64; one shared attention block at 2*d = 7168 applied 14
-   times, 32 heads of hd 224, d_ff 14,336; vocab 32,000, bf16;
-   7,085,109,456 parameters, a 14.17 GB arena): as phase 9, with 14 flash
-   launches a prefill, all on the wgmma route at hd 224, and 191 rmsnorm
-   launches a prefill and a step;
+10. zamba2-7b at its published widths and 27 of its 81 mamba layers (d
+   3584, 112 SSM heads, state 64; one shared attention block at 2*d = 7168
+   applied every 6 layers, 5 times, 32 heads of hd 224, d_ff 14,336; vocab
+   32,000, bf16): as phase 9, with 5 flash launches a prefill, all on the
+   wgmma route at hd 224, and 65 rmsnorm launches a prefill and a step;
 11. training gemma3-1b at its published widths (bf16, remat "nothing",
    AdamW with float32 moments) at the reference's train_4k sequence length,
    global batch 2, through ``repro_torch.train.Trainer``: first step 0's
@@ -161,7 +161,31 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    DTensors over views of its arena, which holds the trained values. Then
    ``int8_allreduce_mean`` over the group equals ``dequantize_int8(
    quantize_int8(x))``. The step, prefill and decode step times are
-   printed beside the meshless ones (DTensor's host cost).
+   printed beside the meshless ones (DTensor's host cost);
+13. the store tier, run right after phase 3 (it needs phase 1's v1 bake,
+   which phases 5 and 6 commit past and drain) and before phase 4:
+   (a) phase 1's bakes exported with ``ws.export_store(codec="none")``,
+   served by ``python -m repro_torch.launch.store --root R --port 0`` in a
+   subprocess (its URL read from its line; killed at the end of the
+   phase, also when it fails); a second root publishes the same gemma3-1b
+   world (bf16, seed 0), then loses its bakes, store cache and shm
+   segments (a fresh machine) and warms through the launcher with
+   ``ws.warmup(store=url)``: the arena must come from the remote, undegraded,
+   every slot byte-equal to phase 1's host image; then
+   ``ServeEngine.from_workspace(strategy="stable-remote", device="cuda")``
+   serves phase 3's prompts with exactly 0 paged copies, 26 flash launches
+   (all wgmma) and 105 rmsnorm a prefill and a step, phase 3's tokens, and
+   its prefill logits the same bits as phase 3's (else held to phase 3's
+   bound); then the root is stripped again and fetches through an
+   in-process ``StoreServer`` whose ``StoreFaultPlan`` cuts the stream at
+   half the blob and flips a byte at a third: at least one resume and one
+   quarantine, not degraded, every slot again equal to the host image.
+   Export, each fetch (and one plain GET of the blob, the wire alone),
+   warmup, engine start and tok/s are printed. (b)
+   ``examples/quickstart_torch.py``, ``serve_batched_torch.py`` and
+   ``vignettes_torch.py`` with ``--device cuda``, as subprocesses started
+   together: each must exit 0 within EXAMPLE_TIMEOUT_S and print its
+   closing lines (all ten vignettes). ``--phases 13`` runs phase 3 too.
 
 ``--phases`` runs only the listed phases (the build always runs) and prints
 no result lines: it is for development on the card.
@@ -238,18 +262,24 @@ KILL_STEP = 40                # worker 1's warmup takes 31 steps: mid-stream
 # the reference's paged-copy cases (tests/test_kernels.py): (pages, copies)
 PAGED_CASES = [(4, 2), (64, 64), (128, 37)]
 # the MoE and encoder-decoder families at their published widths (phases 7
-# and 8): the same static batch, then serve_loop over mixed prompt lengths
+# and 8): the same static batch, then serve_loop over mixed prompt lengths.
+# olmoe-1b-7b and zamba2-7b (phase 10) run at a cut depth, so that the whole
+# script, phase 13 included, stays well inside a 1200 s limit on a slow
+# host: their publishes (0.12-0.16 GB/s) took 117 and 113 s at full depth,
+# their phases 169 and 219 s of a 1138 s run on an H100 80GB HBM3 (700 W)
 MOE_ARCH, ENCDEC_ARCH = "olmoe-1b-7b", "seamless-m4t-large-v2"
-MOE_FLASH, MOE_RMS = 16, 65   # per prefill; rmsnorm 4 a layer + final norm
+MOE_LAYERS = 8                # of 16
+MOE_FLASH, MOE_RMS = 8, 33    # per prefill; rmsnorm 4 a layer + final norm
 ENCDEC_FLASH, ENCDEC_CROSS = 72, 24   # 24 encoder + 24 decoder self, 24 cross
 MIX_REQUESTS = 8              # serve_loop requests of SERVE_LENS tokens
 # the SSM and hybrid families at their published widths (phases 9 and 10):
 # launches a prefill (rmsnorm also a decode step): mamba2 2 norms a block
-# and the final norm; zamba2 also 14 shared-block invocations, each one
-# flash launch at hd 224 and 2 norms
+# and the final norm; zamba2 also a shared-block invocation every 6 layers,
+# each one flash launch at hd 224 and 2 norms
 SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-7b"
 SSM_FLASH, SSM_RMS = 0, 97              # 2 x 48 + 1
-HYBRID_FLASH, HYBRID_RMS = 14, 191      # 2 x 81 + 2 x 14 + 1
+HYBRID_LAYERS = 27                      # of 81: 5 invocations
+HYBRID_FLASH, HYBRID_RMS = 5, 65        # 2 x 27 + 2 x 5 + 1
 # training at published widths (phase 11): gemma3-1b at the reference's
 # train_4k sequence length, global batch 2 (8,192 tokens a step); a failure
 # injected at step 4, after the step-3 checkpoint
@@ -273,8 +303,16 @@ MOE_OUT_TOL = 0.03
 # swing from run to run
 MOE_LOGIT_RATIO = 1.5
 
+# the store tier (phase 13): the examples run on the card as subprocesses,
+# all at once, each within this many seconds
+EXAMPLES = ("quickstart_torch", "serve_batched_torch", "vignettes_torch")
+EXAMPLE_TIMEOUT_S = 420
+
 # device_ms profiles that recorded no device time (each is taken again)
 EMPTY_PROFILES: list[dict] = []
+# phase 3's prompts, tokens and prefill logits (on the card), which phase
+# 13 serves again from the fetched arena
+PHASE3: dict = {}
 T0 = time.perf_counter()      # the stamp of every log line counts from here
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 tensor flop/s
@@ -1428,9 +1466,12 @@ def main_path(cfg, ws, host) -> dict:
             "rmsnorm_backward": 0, "paged_reloc_copy": 1, "non_causal": 0,
             "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
     run, result = static_batch(cfg, ws, host, want)
-    result.update(prefill_logits_check(
-        cfg, run.engine.params, {"tokens": torch.as_tensor(run.prompts, device="cuda")}))
+    batch = {"tokens": torch.as_tensor(run.prompts, device="cuda")}
+    result.update(prefill_logits_check(cfg, run.engine.params, batch))
     result["n_params"] = models.n_params(cfg)
+    with torch.inference_mode():
+        logits, _ = models.prefill(cfg, run.engine.params, batch, impl="kernel")
+    PHASE3.update(prompts=run.prompts, tokens=run.tokens, logits=logits)
     del run
     torch.cuda.empty_cache()
     return result
@@ -1924,6 +1965,264 @@ def traffic_plane(cfg, ws, app) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 13
+def start_store_launcher(root) -> tuple:
+    """``python -m repro_torch.launch.store --root root --port 0`` in a
+    subprocess; returns (the process, the URL its line names)."""
+    import select
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.store", "--root", str(root),
+         "--port", "0"], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    deadline = time.monotonic() + 120
+    lines = []
+    while time.monotonic() < deadline and proc.poll() is None:
+        if select.select([proc.stdout], [], [], 1.0)[0]:
+            line = proc.stdout.readline()
+            lines.append(line)
+            if line.startswith("serving ") and " at " in line:
+                return proc, line.split(" at ")[1].split()[0]
+    proc.kill()
+    proc.wait(timeout=30)
+    fail(f"store launcher gave no URL in 120 s: {''.join(lines)[-2000:]}")
+
+
+def strip_machine(root) -> None:
+    """The fresh-machine simulation of ``tests/test_store_chaos.py``: its
+    objects stay, its bakes (``tables/``), its store cache (``store/``) and
+    its shm segments go."""
+    from repro_torch.core import shm_arena
+    from repro_torch.core.registry import Registry
+
+    shm_arena.unlink_root_segments(Registry(root))
+    n = 0
+    for p in Path(root).glob("tables/*"):
+        p.unlink()
+        n += 1
+    if not n:
+        fail(f"nothing baked under {root}/tables to strip")
+    shutil.rmtree(Path(root) / "store", ignore_errors=True)
+
+
+def host_slots_equal(image, host, what: str) -> None:
+    """Every slot of a fetched host image byte-equal to phase 1's."""
+    import numpy as np
+
+    for name, want in host.tensors.items():
+        got = np.ascontiguousarray(image.tensors[name]).reshape(-1).view(np.uint8)
+        if not np.array_equal(got, np.ascontiguousarray(want).reshape(-1).view(np.uint8)):
+            fail(f"store: {what}: slot {name!r} differs from phase 1's host image")
+    log(f"store: {what}: every one of {len(host.tensors)} slots equals phase 1's "
+        "host image")
+
+
+def fetch_figures(report, wall: float) -> dict:
+    """A fetch's ``StoreReport`` counters, its wall time and the admitted
+    blob's bytes over that time (the wire, the digest check, the install
+    and the shm publish together)."""
+    s = report.summary()
+    return {**s, "wall_s": wall, "fetch_gb_per_s": s["bytes_fetched"] / wall / 1e9}
+
+
+def wire_probe(url: str, digest: str, chunk: int = 1 << 18) -> dict:
+    """One GET of a blob from the launcher, read in the client's chunks
+    and dropped: the wire alone (the server's copies and the socket), with
+    the time to the response's headers apart."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    n = 0
+    with urllib.request.urlopen(f"{url}/blobs/{digest}", timeout=60) as resp:
+        first = time.perf_counter() - t0
+        while True:
+            got = resp.read(chunk)
+            if not got:
+                break
+            n += len(got)
+    wall = time.perf_counter() - t0
+    return {"bytes": n, "wall_s": wall, "headers_s": first, "wire_gb_per_s": n / wall / 1e9}
+
+
+def store_path(cfg, ws, app, host) -> dict:
+    """Phase 13 (a): phase 1's bakes exported (codec none), served by the
+    store launcher in a subprocess, fetched by a fresh root through
+    ``stable-remote`` and served on the card; then fetched again through an
+    in-process server that truncates and flips the wire."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.core import EpochCache
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import publish_model
+    from repro_torch.launch.store import StoreServer
+    from repro_torch.link import Workspace
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.faults import StoreFaultPlan
+
+    out = {}
+    t0 = time.perf_counter()
+    export = ws.export_store(codec="none")
+    out["export"] = {**export, "export_s": time.perf_counter() - t0}
+    log(f"store: exported {json.dumps(out['export'])}")
+    if export["entries"] != 1:
+        fail(f"store: phase 1's root exported {export['entries']} arenas, not 1")
+
+    fresh = tempfile.mkdtemp(prefix="chip-smoke-fresh-")
+    proc = None
+    try:
+        proc, url = start_store_launcher(ws.root)
+        log(f"store: launcher pid {proc.pid} serves {url}")
+        m = Workspace.open(fresh, epoch_cache=EpochCache())
+        t0 = time.perf_counter()
+        if publish_model(m, cfg, device="cuda") != app:
+            fail("store: the fresh root's app has another name")
+        out["fresh_publish_s"] = time.perf_counter() - t0
+        strip_machine(fresh)
+        m = Workspace.open(fresh, epoch_cache=EpochCache())
+        warm = m.warmup([app], store=url)
+        image = warm.images[app]
+        out["warmup_s"] = warm.wall_s
+        out["fetch"] = fetch_figures(m.store_report(), warm.wall_s)
+        out["store_source"] = image.stats.store_source
+        log(f"store: warmup through {url}: {json.dumps(out['fetch'])}; source "
+            f"{out['store_source']}")
+        if out["store_source"] != "remote" or warm.degraded or out["fetch"]["blobs_fetched"] != 1:
+            fail(f"store: the fresh root did not fetch from the store: {out}")
+        host_slots_equal(image, host, "the fetched arena")
+        index = json.loads((Path(ws.root) / "store" / "index.json").read_text())
+        digest = next(iter(index["entries"].values()))["digest"]
+        out["wire"] = wire_probe(url, digest)
+        if out["wire"]["bytes"] != export["blob_bytes"]:
+            fail(f"store: the wire probe read {out['wire']['bytes']} bytes")
+        log(f"store: the launcher's wire alone: {json.dumps(out['wire'])}")
+
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        engine = ServeEngine.from_workspace(cfg, m, app, strategy="stable-remote",
+                                            cache_len=PROMPT + NEW, device="cuda")
+        torch.cuda.synchronize()
+        out["engine_start_s"] = time.perf_counter() - t0
+        tokens, stats = engine.generate(PHASE3["prompts"], NEW)
+        got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+        want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
+                "rmsnorm_backward": 0, "paged_reloc_copy": 0, "non_causal": 0,
+                "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
+        log(f"store: served from the fetched arena; launches {got}, expected {want}")
+        if got != want:
+            fail(f"store: kernel launches {got} != {want}")
+        if not np.array_equal(tokens, PHASE3["tokens"]):
+            fail("store: the tokens served from the fetched arena differ from phase 3's")
+        batch = {"tokens": torch.as_tensor(PHASE3["prompts"], device="cuda")}
+        with torch.inference_mode():
+            logits, _ = models.prefill(cfg, engine.params, batch, impl="kernel")
+        # the same bytes through the same kernels: the same bits expected;
+        # should they differ, phase 3's bound holds them instead
+        same_bits = torch.equal(logits, PHASE3["logits"])
+        if not same_bits:
+            log("store: prefill logits differ from phase 3's bits; holding them to "
+                "phase 3's bound")
+            out.update(prefill_logits_check(cfg, engine.params, batch))
+        out.update(launches=got, tokens_equal=True, logits_same_bits=same_bits,
+                   prefill_s=stats.prefill_s, decode_s=stats.decode_s,
+                   tok_per_s=stats.tok_per_s, load_split=load_split(engine.load_stats))
+        log(f"store: tokens equal phase 3's, prefill logits the same bits; engine start "
+            f"{out['engine_start_s']:.3f} s, prefill {stats.prefill_s:.4f} s, "
+            f"{stats.tok_per_s:.1f} tok/s")
+        del engine, logits, image, warm
+        torch.cuda.empty_cache()
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+    # the same fetch through a hostile wire: one stream cut mid-blob, one
+    # byte flipped in it; the resume completes a corrupt file, which is
+    # quarantined, and a clean retry lands the baker's bytes
+    blob = export["blob_bytes"]
+    plan = StoreFaultPlan(truncate_at=blob // 2, truncate_n=1, flip_at=blob // 3, flip_n=1)
+    try:
+        strip_machine(fresh)
+        with StoreServer(Path(ws.root) / "store", faults=plan) as srv:
+            m = Workspace.open(fresh, epoch_cache=EpochCache())
+            m.attach_store(srv.url)
+            t0 = time.perf_counter()
+            image = m.load(app, strategy="stable-remote")
+            wall = time.perf_counter() - t0
+            out["faulted"] = {**fetch_figures(m.store_report(), wall),
+                              "server": srv.fault_state.counters(),
+                              "store_source": image.stats.store_source}
+        f = out["faulted"]
+        log(f"store: faulted fetch {json.dumps(f)}")
+        if not (f["fetch_resumed"] >= 1 and f["quarantined"] >= 1 and not f["degraded"]
+                and f["store_source"] == "remote"):
+            fail(f"store: the faulted fetch did not resume, quarantine and recover: {f}")
+        host_slots_equal(image, host, "the faulted fetch's arena")
+        f["identical"] = True
+        del image
+        m.close()
+    finally:
+        from repro_torch.core import shm_arena
+        from repro_torch.core.registry import Registry
+
+        shm_arena.unlink_root_segments(Registry(fresh))
+        shutil.rmtree(fresh, ignore_errors=True)
+        shutil.rmtree(Path(ws.root) / "store", ignore_errors=True)
+    return out
+
+
+def run_examples() -> dict:
+    """Phase 13 (b): the port's examples with ``--device cuda``, each a
+    subprocess, all at once; each must exit 0 within EXAMPLE_TIMEOUT_S."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), PYTHONUNBUFFERED="1")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in EXAMPLES:
+        logf = open(OUT_DIR / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py"), "--device", "cuda"],
+            env=env, cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT), logf,
+            time.perf_counter())
+    out = {}
+    deadline = time.monotonic() + EXAMPLE_TIMEOUT_S
+    try:
+        for name, (proc, logf, t0) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            logf.close()
+            text = (OUT_DIR / f"{name}.log").read_text()
+            out[name] = {"rc": rc, "s": time.perf_counter() - t0,
+                         "lines": len(text.splitlines()),
+                         "last": text.strip().splitlines()[-1:] if text.strip() else []}
+            log(f"example {name}: exit {rc} after {out[name]['s']:.1f} s, "
+                f"{out[name]['lines']} lines; last {out[name]['last']}")
+            if rc != 0:
+                fail(f"example {name} exited {rc}:\n{text[-3000:]}")
+    finally:
+        for proc, logf, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            logf.close()
+    text = (OUT_DIR / "vignettes_torch.log").read_text()
+    headers = [f"=== Vignette {i}:" for i in range(1, 11)]
+    missing = [h for h in headers if h not in text]
+    if missing:
+        fail(f"vignettes_torch printed no {missing}")
+    checks = {"quickstart_torch": "sees the upgraded bundle — done.",
+              "serve_batched_torch": "served batch=4"}
+    for name, line in checks.items():
+        if line not in (OUT_DIR / f"{name}.log").read_text():
+            fail(f"example {name} printed no {line!r}")
+    log("examples: all three exited 0; vignettes 1-10 ran on the card")
+    return out
+
+
 # ------------------------------------------------------------ phases 7-8
 def moe_layer_check(args, kw, out) -> dict:
     """One MoE layer of a bf16 run held against an independent computation
@@ -2159,7 +2458,7 @@ def moe_path() -> dict:
     from repro_torch import models
     from repro_torch.configs import get_config
 
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS)
     root, ws, app, host, setup = fresh_workspace(cfg)
     try:
         per_prefill = {"flash_attention": MOE_FLASH, "rmsnorm": MOE_RMS}
@@ -2272,9 +2571,10 @@ def encdec_path() -> dict:
     return out
 
 
-def ssm_path(arch: str, flash: int, rms: int) -> dict:
+def ssm_path(arch: str, flash: int, rms: int, layers: int = 0) -> dict:
     """Phases 9 and 10: mamba2-370m (``flash`` 0) and zamba2-7b (``flash``
-    14, all at hd 224 on the wgmma route) at their published widths, in a
+    5, all at hd 224 on the wgmma route; ``layers`` of its 81) at their
+    published widths, in a
     fresh Workspace: the static batch with exact launches and byte-equal
     slots, prefill logits against a float32 run, every token against a
     teacher-forced float32 run, then the mixed-length ``serve_loop``."""
@@ -2284,6 +2584,8 @@ def ssm_path(arch: str, flash: int, rms: int) -> dict:
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     root, ws, app, host, setup = fresh_workspace(cfg)
     try:
         per_prefill = {"flash_attention": flash, "rmsnorm": rms}
@@ -2868,6 +3170,8 @@ def main() -> None:
                          "only by a run of every phase)")
     args = ap.parse_args()
     only = {int(p) for p in args.phases.split(",") if p}
+    if 13 in only:
+        only.add(3)                          # phase 13 serves phase 3's batch again
     if not (SRC / "repro_torch").is_dir():
         fail(f"no {SRC / 'repro_torch'}: run chip_smoke.py from a checkout")
     sys.path.insert(0, str(SRC))
@@ -2896,7 +3200,7 @@ def main() -> None:
         detail["phase_s"][n] = detail["phase_s"].get(n, 0.0) + time.perf_counter() - t
         log(f"phase {n} ({key}): {time.perf_counter() - t:.1f} s")
 
-    if any(phase(n) for n in range(2, 7)):
+    if any(phase(n) for n in (*range(2, 7), 13)):
         root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
         ws = None
         try:
@@ -2913,6 +3217,13 @@ def main() -> None:
                 detail["phase_s"][2] = time.perf_counter() - t
             if phase(3):
                 timed(3, "main_path", main_path, cfg, ws, host)
+            if phase(13):
+                # before phases 5 and 6 commit v2 and v3: this needs phase
+                # 1's v1 bake, which their drain reclaims
+                timed(13, "store", store_path, cfg, ws, app, host)
+            PHASE3.clear()
+            if phase(13):
+                timed(13, "examples", run_examples)
             del host
             if phase(4):
                 for arch in (ARCH, MOE_ARCH, "qwen2-moe-a2.7b", ENCDEC_ARCH, SSM_ARCH,
@@ -2933,7 +3244,8 @@ def main() -> None:
     if phase(9):
         timed(9, "ssm", ssm_path, SSM_ARCH, SSM_FLASH, SSM_RMS)
     if phase(10):
-        timed(10, "hybrid", ssm_path, HYBRID_ARCH, HYBRID_FLASH, HYBRID_RMS)
+        timed(10, "hybrid", ssm_path, HYBRID_ARCH, HYBRID_FLASH, HYBRID_RMS,
+              HYBRID_LAYERS)
     if phase(11):
         timed(11, "train", train_path)
     if phase(12):
@@ -2960,7 +3272,8 @@ def main() -> None:
              f"{HYBRID_ARCH} serve_loop": detail["hybrid"]["serve_loop"]["launches"],
              "train": detail["train"]["launches"],
              "mesh serve": detail["mesh"]["serve"]["launches"],
-             "mesh train": detail["mesh"]["train"]["launches"]}
+             "mesh train": detail["mesh"]["train"]["launches"],
+             "store": detail["store"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     kernels[0]["non_causal_by_path"] = {p: c.get("non_causal", 0) for p, c in paths.items()}
     kernels[3]["launches_by_route"] = {"train": detail["train"]["backward_routes"],

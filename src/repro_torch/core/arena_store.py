@@ -8,9 +8,9 @@ module chains three tiers under one call:
    previous fetch): nothing to do.
 2. **local store cache** (``<root>/store/``) — a previously fetched and
    *verified* blob is decoded and installed without touching the network.
-3. **remote store** — a minimal HTTP object store (the reference's
-   ``repro.launch.store``; its port is ROADMAP Queue A item 12) is asked
-   for the blob; the fetch path is robustness-first (below).
+3. **remote store** — a minimal HTTP object store
+   (``repro_torch.launch.store``) is asked for the blob; the fetch path is
+   robustness-first (below).
 4. **fallback bake** — the remote is unreachable past the retry budget
    and the machine has the payloads locally: bake instead of wedging, and
    surface ``degraded=True`` in the :class:`StoreReport`.

@@ -519,8 +519,8 @@ class Workspace:
         (``report.images``) plus hit/fill counts for observability.
 
         ``store=`` turns the warmup into a fleet warm-THROUGH-store: pass
-        a served store URL (a store launcher is not ported yet: ROADMAP
-        Queue A item 12) — or an existing
+        a served store URL (``python -m repro_torch.launch.store``) — or
+        an existing
         ``TieredStore`` — and missing arenas are downloaded (verified,
         resumable, retried; see ``core/arena_store``) then published to
         shm, instead of requiring a local bake. One machine bakes and
@@ -571,9 +571,8 @@ class Workspace:
     def attach_store(self, store, *, policy=None, codec: str = "zlib"):
         """Attach the tiered arena store consulted by ``stable-remote``.
 
-        ``store`` is a served store URL (``"http://host:port"``; the port
-        has no store launcher yet, ROADMAP Queue A item 12), or an
-        already-built
+        ``store`` is a served store URL (``"http://host:port"``, e.g. from
+        ``python -m repro_torch.launch.store``), or an already-built
         ``TieredStore`` (tests compose fault policies directly). Returns
         the attached ``TieredStore`` (``.report`` carries the counters).
         """
@@ -595,8 +594,8 @@ class Workspace:
     def export_store(self, *, codec: str = "zlib") -> dict:
         """Publish every baked arena into ``<root>/store/`` (blobs +
         index) so a store server can serve this machine's bakes to a
-        fleet (the port's launcher for one is ROADMAP Queue A item 12). Returns the export summary (entries, raw vs encoded
-        bytes)."""
+        fleet (``repro_torch.launch.store`` serves it). Returns the
+        export summary (entries, raw vs encoded bytes)."""
         from repro_torch.core.arena_store import export_store
 
         return export_store(self.registry, codec=codec)

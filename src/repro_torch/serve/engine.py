@@ -285,8 +285,8 @@ class ServeEngine:
         digests for byte-identity checks).
 
         ``store_url`` hands every worker a served arena store to fetch
-        missing bakes from (``strategy="stable-remote"``); the store's
-        launcher is not ported yet (ROADMAP Queue A item 12).
+        missing bakes from (``strategy="stable-remote"``), such as one
+        that ``repro_torch.launch.store`` serves.
         """
         from repro_torch.core.shm_arena import run_fleet
 

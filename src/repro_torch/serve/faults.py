@@ -30,8 +30,7 @@ a chaos run can kill worker 0 while workers 1..N-1 prove the re-route
 path. Respawned workers are handed no plan — they must survive.
 
 :class:`StoreFaultPlan` is the network-side analogue for the
-served arena store, whose launcher (the reference's ``repro.launch.store``)
-is not ported yet (ROADMAP Queue A item 12). It is consumed server-side
+served arena store (``repro_torch.launch.store``). It is consumed server-side
 by the store's request handler rather than through the process-global
 hooks above, so a chaos test can break the wire while the fetching
 process under test runs entirely fault-free code.
@@ -63,9 +62,8 @@ class FaultPlan:
 class StoreFaultPlan:
     """Network faults for the served arena store (the store chaos tier).
 
-    Consumed by the store server's request handler (the reference's
-    ``repro.launch.store.StoreServer``; its port is ROADMAP Queue A item
-    12): the handler consults
+    Consumed by the store server's request handler
+    (``repro_torch.launch.store.StoreServer``): the handler consults
     the plan per request and mutates the wire, never the bytes on disk —
     the store's own content is always intact, which is exactly why the
     client-side verification has to be what protects the fleet.

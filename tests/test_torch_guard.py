@@ -5,6 +5,7 @@ CPU when no card is present."""
 from __future__ import annotations
 
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -14,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+REPO = Path(__file__).resolve().parents[1]
+SRC = REPO / "src"
 PORT = SRC / "repro_torch"
+# the port's scripts outside the package: they import the port alone too
+SCRIPTS = sorted(REPO.glob("examples/*_torch.py")) + [REPO / "chip_smoke.py"]
 BANNED = ("jax", "ml_dtypes", "repro")
 
 
@@ -50,14 +54,18 @@ def test_port_sources_import_no_jax_ml_dtypes_or_reference():
     for module in ("serve/traffic.py", "serve/engine.py", "core/shm_arena.py",
                    "launch/serve.py", "kernels/__init__.py", "models/moe.py",
                    "dist/sharding.py", "dist/context.py", "dist/hlo_analysis.py",
-                   "launch/mesh.py", "launch/steps.py", "launch/dryrun.py"):
+                   "launch/mesh.py", "launch/steps.py", "launch/dryrun.py",
+                   "launch/store.py", "configs/paper_microbench.py"):
         assert PORT / module in files, module
+    names = {p.name for p in SCRIPTS}
+    assert {"quickstart_torch.py", "serve_batched_torch.py", "vignettes_torch.py",
+            "train_e2e_torch.py", "chip_smoke.py"} <= names, names
     bad = []
-    for path in files:
+    for path in files + SCRIPTS:
         tree = ast.parse(path.read_text(), filename=str(path))
         for lineno, mod in _imported_modules(tree):
             if _banned(mod):
-                bad.append(f"{path.relative_to(SRC)}:{lineno} imports {mod}")
+                bad.append(f"{path.relative_to(REPO)}:{lineno} imports {mod}")
     assert not bad, "\n".join(bad)
 
 
@@ -177,6 +185,14 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()
     assert resolve_device("cpu").type == "cpu"     # the CPU only on request
+
+    # the example scripts: --device defaults to the card
+    for name in ("quickstart_torch", "serve_batched_torch", "vignettes_torch"):
+        spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            script.main([])
 
     # worker processes of the traffic plane and the fleet: each reports an
     # error naming CUDA, and nothing completes on the CPU
