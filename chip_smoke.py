@@ -132,7 +132,15 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    AdamW with float32 moments) at the reference's train_4k sequence length,
    global batch 2, through ``repro_torch.train.Trainer``: first step 0's
    loss and every gradient on the kernel path against a float32 plain-norm
-   run on the card, within 1.5x the bf16 plain-norm run's error; then
+   run on the card, within 1.5x the bf16 plain-norm run's error; the
+   vocabulary-parallel loss at published width: step 0's logits (2 x 4096
+   x 262,144, bf16) in 16 vocabulary slices of 16,384 (the pod's "model"
+   axis) through ``nll_over_shards`` (the loss's shard functions and its
+   combine step, a max and a sum over the stacked shards), the loss within
+   1e-5 relative and dlogits within 1e-5 relative L2 of
+   ``cross_entropy``'s whole-tensor loss and its autograd gradient, the
+   same bits on a second call, with
+   the peak allocation and time of the whole loss and of one shard; then
    publish, an epoch-path start (opt/* INIT), steps, the step-3 checkpoint
    (a management event, published on a background thread), a failure
    injected at step 4, a restart on the table-driven path from opt/step,
@@ -293,6 +301,10 @@ MESH_DECODE, MESH_TRAIN_STEPS = 31, 3
 # the kernel path's loss and gradient errors against a float32 plain-norm
 # run: at most this times the bf16 plain-norm run's
 GRAD_RATIO = 1.5
+# phase 11's vocabulary-parallel loss: the pod's "model" axis (16 ways) over
+# gemma3-1b's 262,144 columns; a float32 sum over 16 shards against one over
+# the whole row moves the loss and dlogits by float32 rounding (~1e-7)
+VOCAB_SHARDS, VOCAB_LOSS_TOL, VOCAB_GRAD_TOL = 16, 1e-5, 1e-5
 # an MoE layer's output against the per-expert float32 FFN, relative to the
 # layer's largest output value (bf16 rounds each product and sum at 2**-8)
 MOE_OUT_TOL = 0.03
@@ -2732,6 +2744,100 @@ def train_grad_check(cfg, params, batch) -> dict:
     return out
 
 
+def vocab_parallel_check(cfg, params, batch) -> dict:
+    """The vocabulary-parallel loss's shard functions and combine at
+    published width, in one process: the logits of step 0's batch (B x S x
+    262,144, bf16) cut into VOCAB_SHARDS slices of the vocabulary, the pod's
+    "model" axis, through ``nll_over_shards``: each slice through
+    ``shard_lse`` and ``shard_label_logit``, the slices combined by
+    ``combine_shards`` with a max and a sum over the stacked shards (the
+    code a mesh runs with all-reduces), and each slice's gradient by
+    ``shard_grad``. Held against
+    ``cross_entropy``'s whole-tensor path and its autograd gradient: the
+    loss within VOCAB_LOSS_TOL (relative), dlogits within VOCAB_GRAD_TOL
+    (relative L2, in bf16 as the step takes them), the same bits on a
+    second call. Records the peak allocation above the logits of the whole
+    loss with its backward and of one shard's functions, and their times."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.models.common import (cross_entropy, nll_over_shards, shard_grad,
+                                           shard_label_logit, shard_lse)
+
+    with torch.no_grad():
+        logits, _ = models.forward(cfg, params, batch, impl="chunked")
+    labels = batch["labels"]
+    vocab = logits.shape[-1]
+    width = vocab // VOCAB_SHARDS
+    shards = [logits[..., i * width:(i + 1) * width] for i in range(VOCAB_SHARDS)]
+
+    def whole():
+        leaf = logits.detach().requires_grad_()
+        loss = cross_entropy(leaf, labels)
+        (grad,) = torch.autograd.grad(loss, leaf)
+        return loss.detach(), grad
+
+    def sharded():
+        loss, grads, _ = nll_over_shards(shards, labels)
+        return loss, grads
+
+    def peak_gb(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    one = shards[0].contiguous()                   # a device's local shard
+
+    def one_shard():
+        lse = shard_lse(one)
+        ll = shard_label_logit(one, labels, 0)
+        g = torch.full_like(lse, 1.0 / lse.numel())
+        return lse - ll, shard_grad(one, labels, 0, lse, g).to(one.dtype)
+
+    want_loss, want_grad = whole()
+    loss, grads = sharded()
+    loss2, grads2 = sharded()
+    sq_err = sq_ref = 0.0
+    for i, gr in enumerate(grads):
+        ref = want_grad[..., i * width:(i + 1) * width].double()
+        sq_err += float(((gr.double() - ref) ** 2).sum())
+        sq_ref += float((ref ** 2).sum())
+    same_bits = torch.equal(loss, loss2) and all(torch.equal(a, b)
+                                                 for a, b in zip(grads, grads2))
+    del grads, grads2, want_grad
+    out = {"shape": list(logits.shape), "shards": VOCAB_SHARDS, "shard_width": width,
+           "loss_whole": float(want_loss), "loss_sharded": float(loss),
+           "loss_rel_err": abs(float(loss) - float(want_loss)) / abs(float(want_loss)),
+           "grad_rel_l2": (sq_err / sq_ref) ** 0.5, "same_bits_second_call": same_bits,
+           "loss_tol": VOCAB_LOSS_TOL, "grad_tol": VOCAB_GRAD_TOL,
+           "logits_gb": logits.numel() * logits.element_size() / 1e9}
+    torch.cuda.empty_cache()
+    out["peak_whole_gb"] = peak_gb(whole)
+    out["peak_one_shard_gb"] = peak_gb(one_shard)
+    out["whole_ms"] = time_ms(whole)
+    out["sharded_ms"] = time_ms(sharded)
+    out["one_shard_ms"] = time_ms(one_shard)
+    del logits, shards, one
+    torch.cuda.empty_cache()
+    log(f"{cfg.name} vocabulary-parallel loss over {VOCAB_SHARDS} slices of {width} at "
+        f"{out['shape']}: " + json.dumps({k: out[k] for k in (
+            "loss_rel_err", "grad_rel_l2", "same_bits_second_call", "peak_whole_gb",
+            "peak_one_shard_gb", "whole_ms", "sharded_ms", "one_shard_ms")}))
+    if not out["loss_rel_err"] <= VOCAB_LOSS_TOL:
+        fail(f"{cfg.name}: the vocabulary-parallel loss is {out['loss_rel_err']} off the "
+             f"whole tensor's (limit {VOCAB_LOSS_TOL})")
+    if not out["grad_rel_l2"] <= VOCAB_GRAD_TOL:
+        fail(f"{cfg.name}: the vocabulary-parallel dlogits are {out['grad_rel_l2']} off "
+             f"the whole tensor's (relative L2, limit {VOCAB_GRAD_TOL})")
+    if not same_bits:
+        fail(f"{cfg.name}: the vocabulary-parallel loss changed bits on a second call")
+    return out
+
+
 def check_backward_kernels(counts: dict, calls: int, what: str) -> None:
     """The profiler's launches of the backward's kernels (``kernel_counts``
     of RMS_BWD_KERNELS) over ``calls`` backward calls: each call one kernel,
@@ -2798,6 +2904,9 @@ def train_path() -> dict:
         batch0 = to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
                                       seq_len=TRAIN_SEQ, step=0, seed=tcfg.seed), "cuda")
         grads = train_grad_check(cfg, params, batch0)
+        t1 = time.perf_counter()
+        vocab = vocab_parallel_check(cfg, params, batch0)
+        vocab["seconds"] = time.perf_counter() - t1
         del params, batch0
         torch.cuda.empty_cache()
 
@@ -2899,6 +3008,7 @@ def train_path() -> dict:
                                         + res.step_s[TRAIN_CKPT_EVERY + 1]),
             "peak_allocated_gb": peak / 1e9, "wall_s": wall,
             "host_load_s": host_load_s, "grad_check": grads, "profile": profile,
+            "vocab_parallel": vocab,
             "n_params": models.n_params(cfg),
         }
         log(f"{cfg.name} training: " + json.dumps({k: out[k] for k in (

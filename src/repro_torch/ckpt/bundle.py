@@ -103,6 +103,19 @@ def bundle_from_params(
     return obj, pl
 
 
+def make_kernel_lib(
+    name: str, version: str, entries: Mapping[str, int]
+) -> tuple[StoreObject, bytes]:
+    """Kernel library exporting op symbols; offset = entry-point index."""
+    syms = [
+        SymbolDef(f"kernel:{k}", (), "kernel", idx, 0)
+        for k, idx in entries.items()
+    ]
+    return make_object(
+        name=name, version=version, kind=ObjectKind.KERNEL_LIB, symbols=syms
+    )
+
+
 # ---------------------------------------------------------------- conversion
 def image_to_params(image) -> dict[str, np.ndarray]:
     """LoadedImage -> params dict (zero-copy views into the arena; bfloat16

@@ -8,6 +8,7 @@
     prefill(cfg, params, batch)       -> (logits, cache)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
     cache_spec(cfg, B, S)             -> ({name: (shape, dtype)}, {name: axes})
+    init_cache(cfg, B, S, device)     -> {name: zero tensor}  (the decode cache)
     manifest_refs(cfg)                -> [SymbolRef]  (stable-linking imports)
     abstract(cfg)                     -> {name: meta tensor}  (dry-run)
     input_specs(cfg, shape)           -> {name: meta tensor}  (dry-run)
@@ -23,9 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import SymbolRef
+from repro_torch.device import resolve_device
 
 from . import hybrid, mamba2, transformer
-from .specs import ParamSpec, init_params as _init
+from .specs import ParamSpec, abstract_params, init_params as _init
 from .specs import param_bytes, param_count, torch_dtype
 
 
@@ -66,6 +68,12 @@ def decode_step(cfg, params, cache, tokens):
 
 def cache_spec(cfg, batch, seq_len):
     return _mod(cfg).cache_spec(cfg, batch, seq_len)
+
+
+def init_cache(cfg, batch, seq_len, device="cuda"):
+    """The family's zero decode cache for ``batch`` rows of ``seq_len``
+    positions on ``device``."""
+    return _mod(cfg).init_cache(cfg, batch, seq_len, resolve_device(device))
 
 
 # ------------------------------------------------------------ stable linking
@@ -126,7 +134,7 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def abstract(cfg) -> dict[str, torch.Tensor]:
     """Every parameter as a meta tensor of its shape and dtype."""
-    return {n: _meta(s.shape, s.dtype) for n, s in param_specs(cfg).items()}
+    return abstract_params(param_specs(cfg))
 
 
 def input_specs(cfg, shape) -> dict:

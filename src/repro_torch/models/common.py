@@ -281,14 +281,167 @@ def mlp(x, w_gate, w_up, w_down, *, act="silu", b_up=None, b_down=None):
 
 # -------------------------------------------------------------------- loss
 def cross_entropy(logits, labels, mask: Optional[torch.Tensor] = None):
-    """Mean next-token CE; logits (B,S,V) any float dtype, f32 internally."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    # the difference is taken before the gathered axis is dropped: on a
-    # DTensor sharded over the vocab, the gather's masked partial sum is
-    # reduced in the shape it was gathered in
-    ll = torch.gather(logits, -1, labels[..., None].long())
-    nll = (logz[..., None] - ll)[..., 0]
+    """Mean next-token CE; logits (B,S,V) any float dtype, f32 internally.
+
+    On a DTensor that a mesh axis shards (the vocabulary, the batch or
+    both), the per-token loss is ``vocab_parallel_nll``: local math on each
+    device's shard and explicit reductions over the axes that shard the
+    vocabulary, so no device ever holds more than its own shard (DTensor's
+    own propagation would gather the logits whole, and the gather's
+    backward would build a gradient of the whole tensor). Plain tensors
+    and replicated DTensors (every leaf of a 1x1 mesh) take the plain path."""
+    if is_sharded(logits):
+        nll = vocab_parallel_nll(logits, labels)
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())
+        nll = (logz[..., None] - ll)[..., 0]
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+# The vocabulary-parallel loss in two layers: plain functions of one shard
+# of the logits (columns [v0, v0 + V_r) of the vocabulary), and a combine
+# step that reduces their results over the shards with the reductions it is
+# given (collectives over the mesh axes that shard the vocabulary, or a max
+# and a sum over a stacked list of shards in one process).
+def shard_lse(x: torch.Tensor) -> torch.Tensor:
+    """The shard's log-sum-exp over its columns, in float32."""
+    return torch.logsumexp(x.float(), dim=-1)
+
+
+def _local_labels(labels, v0: int, width: int):
+    """(labels - v0 clamped into the shard, whether each label is in it)."""
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < width)
+    return local.clamp(0, width - 1), inside
+
+
+def shard_label_logit(x: torch.Tensor, labels: torch.Tensor, v0: int) -> torch.Tensor:
+    """The label's logit in float32 where the label lies in the shard, else 0."""
+    local, inside = _local_labels(labels, v0, x.shape[-1])
+    ll = torch.gather(x, -1, local[..., None])[..., 0].float()
+    return torch.where(inside, ll, torch.zeros_like(ll))
+
+
+def combine_shards(lse_r, ll_r, reduce_max, reduce_sum):
+    """The whole vocabulary's log-sum-exp and label logit from the shards':
+    ``M = max_r lse_r``, ``lse = M + log(sum_r exp(lse_r - M))`` and
+    ``ll = sum_r ll_r``, the two sums stacked into one reduction. With one
+    shard ``lse`` is its own log-sum-exp bit for bit (``exp(0) = 1``,
+    ``log 1 = 0``)."""
+    m = reduce_max(lse_r)
+    sums = reduce_sum(torch.stack([torch.exp(lse_r - m), ll_r], dim=-1))
+    return m + torch.log(sums[..., 0]), sums[..., 1]
+
+
+def shard_grad(x, labels, v0: int, lse, g) -> torch.Tensor:
+    """d loss / d shard in float32: ``(softmax_r - onehot_r) * g`` with
+    ``softmax_r = exp(x - lse)``, ``g`` the per-token gradient of the loss."""
+    local, inside = _local_labels(labels, v0, x.shape[-1])
+    # in place on one float32 copy of the shard: its only full-size buffer
+    p = x.to(torch.float32, copy=True).sub_(lse[..., None]).exp_()
+    # one index a row: the scatter has no colliding adds and is deterministic
+    p.scatter_add_(-1, local[..., None], -inside[..., None].float())
+    return p.mul_(g[..., None])
+
+
+def nll_over_shards(shards, labels, mask: Optional[torch.Tensor] = None):
+    """The loss of logits given as a list of vocabulary slices in one
+    process, and its gradient: the shard functions on each slice, combined
+    by ``combine_shards`` with a max and a sum over the stacked slices (the
+    single-process form of the mesh's all-reduces), the mean and ``mask``
+    as ``cross_entropy``'s. Returns (loss, [d loss / d slice], lse)."""
+    v0 = [0]
+    for s in shards[:-1]:
+        v0.append(v0[-1] + s.shape[-1])
+    lse_r = torch.stack([shard_lse(s) for s in shards])
+    ll_r = torch.stack([shard_label_logit(s, labels, v) for s, v in zip(shards, v0)])
+    lse, ll = combine_shards(lse_r, ll_r, lambda t: t.amax(0), lambda t: t.sum(0))
+    nll = lse - ll
+    if mask is None:
+        loss, g = nll.mean(), torch.full_like(nll, 1.0 / nll.numel())
+    else:
+        count = torch.clamp(mask.sum(), min=1)
+        loss, g = (nll * mask).sum() / count, mask / count
+    return loss, [shard_grad(s, labels, v, lse, g).to(s.dtype)
+                  for s, v in zip(shards, v0)], lse
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """The per-token loss of one device's shard; the backward's gradient is
+    the shard's own, computed from the saved shard and the combined lse."""
+
+    @staticmethod
+    def forward(ctx, x, labels, v0, reduce_max, reduce_sum):
+        lse, ll = combine_shards(shard_lse(x), shard_label_logit(x, labels, v0),
+                                 reduce_max, reduce_sum)
+        ctx.save_for_backward(x, labels, lse)
+        ctx.v0 = v0
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, labels, lse = ctx.saved_tensors
+        return shard_grad(x, labels, ctx.v0, lse, g).to(x.dtype), None, None, None, None
+
+
+def is_sharded(logits) -> bool:
+    """Whether ``logits`` is a DTensor that some mesh dim shards."""
+    return is_dtensor(logits) and any(p.is_shard() for p in logits.placements)
+
+
+def _shard_start(mesh, dims, vocab: int) -> int:
+    """This device's first vocabulary index: the shards nest in mesh-dim
+    order, as DTensor lays them out (``spec_for`` shards only evenly)."""
+    coord = mesh.get_coordinate()
+    lo, width = 0, vocab
+    for d in dims:
+        width //= mesh.size(d)
+        lo += coord[d] * width
+    return lo
+
+
+def _mesh_reduce(mesh, dims, op: str):
+    import torch.distributed._functional_collectives as funcol
+
+    if not dims:                      # one shard of the vocabulary: nothing to reduce
+        return lambda t: t
+
+    def reduce(t):
+        for d in dims:
+            t = funcol.all_reduce(t, op, (mesh, d))
+        return funcol.wait_tensor(t)
+
+    return reduce
+
+
+def vocab_parallel_nll(logits, labels):
+    """Per-token loss (B,S) of logits that a mesh shards: each device's
+    shard through ``_VocabParallelNLL`` (``local_map``), the max and the
+    sums all-reduced over the mesh dims that shard the vocabulary (none
+    when only batch axes are sharded). The result keeps the batch axes'
+    placements and is replicated over the vocabulary's."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                            for p in logits.placements])
+    x_pl = tuple(logits.placements)
+    dims = tuple(i for i, p in enumerate(x_pl) if p.is_shard(last))
+    row_pl = tuple(Replicate() if p.is_shard(last) else p for p in x_pl)
+    if tuple(labels.placements) != row_pl:
+        labels = labels.redistribute(mesh, row_pl)
+    v0 = _shard_start(mesh, dims, logits.shape[-1])
+
+    def local(x, lab):
+        return _VocabParallelNLL.apply(x, lab, v0, _mesh_reduce(mesh, dims, "max"),
+                                       _mesh_reduce(mesh, dims, "sum"))
+
+    fn = local_map(local, out_placements=list(row_pl), in_placements=(x_pl, row_pl),
+                   device_mesh=mesh)
+    return fn(logits, labels)

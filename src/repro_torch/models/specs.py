@@ -21,6 +21,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.resolver import np_dtype
 from repro_torch.device import resolve_device, torch_dtype
 
 
@@ -70,6 +71,26 @@ def init_params(
         gen.manual_seed(_name_seed(seed, n))
         out[n] = _init_one(gen, s, dev)
     return out
+
+
+def init_params_np(
+    specs: Mapping[str, ParamSpec], seed: int = 0
+) -> dict[str, np.ndarray]:
+    """``init_params`` on the CPU as numpy arrays; a bfloat16 parameter is
+    its 2-byte bit pattern in the linker's stand-in dtype (``np_dtype``)."""
+    out = {}
+    for n, t in init_params(specs, seed, "cpu").items():
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[n] = t.numpy().view(np_dtype(specs[n].dtype))
+    return out
+
+
+def abstract_params(specs: Mapping[str, ParamSpec]) -> dict[str, torch.Tensor]:
+    """Every parameter as a meta tensor (a shape and a dtype, no storage),
+    the counterpart of the reference's ``ShapeDtypeStruct``s."""
+    return {n: torch.empty(s.shape, dtype=torch_dtype(s.dtype), device="meta")
+            for n, s in specs.items()}
 
 
 def param_bytes(specs: Mapping[str, ParamSpec]) -> int:

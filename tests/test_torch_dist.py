@@ -135,6 +135,8 @@ def test_build_step_on_a_2x2_mesh_matches_the_unsharded_reference(tmp_path, arch
     assert got["placements"]["embed/tokens"] == [str(Shard(1)), str(Shard(0))]
     assert {tuple(p) for p in got["cache_placements"].values()} == {
         (str(Shard(1)), str(Replicate()))}
+    # the loss took the vocabulary-parallel path, on this device's shard
+    assert got["vocab_parallel_shards"] == [(B // 2, S, rcfg.vocab_size // 2)]
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-370m"])
@@ -144,6 +146,7 @@ def test_build_step_on_a_1x1_mesh_gives_the_meshless_bits(tmp_path, arch):
     _, inp = _inputs(arch)
     got = _run(tmp_path, 1, "steps", inp, arch, "1x1")
     plain = got.pop("meshless")
+    assert got["vocab_parallel_shards"] == []       # a replicated vocabulary
     for key in ("loss", "grad_norm", "logits", "tokens"):
         assert torch.equal(got[key], plain[key]), key
     for n, t in plain["params"].items():

@@ -7,7 +7,9 @@ It imports torch and the port only (no JAX):
     python tests/torch_dist_worker.py CASE INPUTS.pt OUT.pt [ARG ...]
 
 Cases: ``steps`` (``build_step``'s train, prefill and decode steps on a
-mesh; on a one-device mesh also the meshless steps in this process),
+mesh, with each loss's local logits shape where it took the
+vocabulary-parallel path; on a one-device mesh also the meshless steps in
+this process),
 ``greedy`` (a prefill and a greedy decode step at batch 1 on a mesh that
 shards the vocabulary, for several weight sets), ``trainer`` (the
 ``Trainer`` on a mesh), ``trainer_local`` (a meshless ``Trainer`` and one
@@ -30,6 +32,7 @@ from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch.mesh import mesh_from_spec
 from repro_torch.launch.steps import build_step, make_decode_fn, make_prefill_fn, make_train_fn
+from repro_torch.models import common
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 
 DECODE_STEPS = 4
@@ -73,10 +76,22 @@ def case_steps(inp, arch, spec):
     B, S = batch["tokens"].shape
     train = build_step(cfg, ShapeConfig("t", S, B, "train"), mesh, opt_cfg=_opt(inp["opt"]))
     params = params_from_numpy(inp["params"], specs, device="cpu")
-    p, _, metrics = train.jitted(params, init_opt_state(params), batch)
+    vocab_parallel = common.vocab_parallel_nll
+    calls = []
+
+    def spy(logits, labels):
+        calls.append(tuple(logits.to_local().shape))
+        return vocab_parallel(logits, labels)
+
+    common.vocab_parallel_nll = spy
+    try:
+        p, _, metrics = train.jitted(params, init_opt_state(params), batch)
+    finally:
+        common.vocab_parallel_nll = vocab_parallel
     out = {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
            "params": {n: _full(t).detach() for n, t in p.items()},
-           "placements": {n: [str(x) for x in t.placements] for n, t in p.items()}}
+           "placements": {n: [str(x) for x in t.placements] for n, t in p.items()},
+           "vocab_parallel_shards": calls}
     plain = params_from_numpy(inp["params"], specs, device="cpu")
     with torch.no_grad():
         prefill = build_step(cfg, ShapeConfig("p", S, B, "prefill"), mesh, impl="kernel")
