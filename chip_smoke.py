@@ -33,8 +33,9 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    rmsnorm's forward is also timed at gemma3-1b's training shapes. Its
    backward kernel on each route (tma: one launch; two_pass: the rows and
    the column sums): the sweep cases in f32 and bf16, gemma3-1b's training
-   shapes ((8192, 1152), (32768, 256), (8192, 256)) in bf16 and strided
-   rows, dx within the forward's tolerances, dscale within 1e-4 of the
+   shapes ((8192, 1152), (32768, 256), (8192, 256)) and olmoe-1b-7b's
+   ((8192, 2048) on the two_pass route, (131072, 128) on tma) in bf16 and
+   strided rows, dx within the forward's tolerances, dscale within 1e-4 of the
    float32 plain sum's largest value, both the same bits on a second call,
    each call counted once on the route ``bwd_route`` gives, the training
    shapes on the tma route, its tickets back at 0; timed at the training
@@ -169,7 +170,13 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    DTensors over views of its arena, which holds the trained values. Then
    ``int8_allreduce_mean`` over the group equals ``dequantize_int8(
    quantize_int8(x))``. The step, prefill and decode step times are
-   printed beside the meshless ones (DTensor's host cost);
+   printed beside the meshless ones (DTensor's host cost). Then olmoe-1b-7b
+   at its published widths, weights made on the card from seed 0: at 8 of
+   its 16 layers the same serving check (8 flash (wgmma) and 33 rmsnorm a
+   prefill, 33 a step), and at 2 layers one train step through
+   ``build_step`` on the mesh and through the meshless ``make_train_fn``:
+   the same loss, grad_norm and updated params bits, 0 flash, 17 rmsnorm
+   forward and 9 backward (4 on the tma route, 5 on two_pass);
 13. the store tier, run right after phase 3 (it needs phase 1's v1 bake,
    which phases 5 and 6 commit past and drain) and before phase 4:
    (a) phase 1's bakes exported with ``ws.export_store(codec="none")``,
@@ -244,6 +251,11 @@ RMS_BWD_TRAIN = {(8192, 1152): 53, (32768, 256): 26, (8192, 256): 26}
 # the forward at those shapes: each norm once and again in the remat recompute
 # (the final norm is outside the remat unit)
 RMS_FWD_TRAIN = {(8192, 1152): 105, (32768, 256): 52, (8192, 256): 52}
+# rmsnorm's backward at olmoe-1b-7b's training shapes (phase 12's mesh train
+# step: 2 x 4096 tokens), with the route ``bwd_route`` gives each: the layer
+# and final norms (d 2048 in bf16, 256 16-byte vectors a row, over the tma
+# route's 160) and the q and k norms (16 heads of 128 a token)
+RMS_BWD_MOE = {(8192, 2048): "two_pass", (131072, 128): "tma"}
 RMS_BWD_TRAIN_KERNELS = (     # the instantiations those shapes run (bf16, tma)
     "rmsnorm_bwd_tma_kernel<__nv_bfloat16, __nv_bfloat16, 5, 4, 1>",
     "rmsnorm_bwd_tma_kernel<__nv_bfloat16, __nv_bfloat16, 1, 1, 4>")
@@ -298,6 +310,10 @@ TRAIN_OPT = {"peak_lr": 1e-4, "warmup_steps": 2, "decay_steps": 5}
 # static batch's prompts then this many decode steps, and this many
 # training steps at the training shape, each beside its meshless run
 MESH_DECODE, MESH_TRAIN_STEPS = 31, 3
+# and the MoE family through it: olmoe-1b-7b served at MOE_LAYERS layers,
+# and one training step at this depth (about 1 B parameters, beside AdamW's
+# float32 moments), each beside its meshless run on the same weights
+MESH_MOE_TRAIN_LAYERS = 2
 # the kernel path's loss and gradient errors against a float32 plain-norm
 # run: at most this times the bf16 plain-norm run's
 GRAD_RATIO = 1.5
@@ -1020,8 +1036,10 @@ def check_rmsnorm_backward() -> dict:
     """rmsnorm's backward kernel against ``rmsnorm_backward_plain`` on each
     route ``bwd_route`` picks: the sweep's cases in float32 and bfloat16
     (d = 7 and bf16 d = 300 on the two_pass route, the rest on the tma
-    route), gemma3-1b's training shapes in bfloat16 and strided rows (the
-    final norm's last position); dx within RMS_TOL, dscale within
+    route), gemma3-1b's and olmoe-1b-7b's training shapes in bfloat16
+    (olmoe's d 2048 rows on the two_pass route, its many partial sums a
+    column included) and strided rows (the final norm's last position);
+    dx within RMS_TOL, dscale within
     DSCALE_TOL of the float32 plain sum's largest value (plus bf16's
     rounding of each value), both the same bits on a second call, one
     launch counted on the expected route a call, and the tma route's
@@ -1039,7 +1057,7 @@ def check_rmsnorm_backward() -> dict:
     g = torch.Generator(device="cuda").manual_seed(5)
     errs, worst = [], 0.0
     cases = [(shape, dt) for shape in RMS_CASES for dt in (torch.float32, torch.bfloat16)]
-    cases += [(shape, torch.bfloat16) for shape in RMS_BWD_TRAIN]
+    cases += [(shape, torch.bfloat16) for shape in (*RMS_BWD_TRAIN, *RMS_BWD_MOE)]
     cases += [("strided", dt) for dt in (torch.float32, torch.bfloat16)]
     routes_run = set()
     for shape, dt in cases:
@@ -1085,6 +1103,9 @@ def check_rmsnorm_backward() -> dict:
             if route != "tma":
                 fail(f"rmsnorm backward {shape}: the training shape took the {route} route")
             worst = max(worst, err)
+        if shape in RMS_BWD_MOE and route != RMS_BWD_MOE[shape]:
+            fail(f"rmsnorm backward {shape}: olmoe's training shape took the {route} "
+                 f"route, not {RMS_BWD_MOE[shape]}")
     if routes_run != set(rn.backward_launches_by_route):
         fail(f"rmsnorm backward: the cases ran the routes {routes_run} only")
     tickets = {k: int(t.item()) for k, (t, _) in rn._bwd_scratch_by.items()}
@@ -3037,11 +3058,13 @@ def _timed_cuda(fn):
     return out, time.perf_counter() - t
 
 
-def mesh_serve(cfg, mesh, params) -> dict:
-    """Phase 12's serving half: ``build_step``'s prefill (impl="kernel")
+def mesh_serve(cfg, mesh, params, flash: int, rms: int) -> dict:
+    """Phase 12's serving check: ``build_step``'s prefill (impl="kernel")
     and MESH_DECODE decode steps on ``mesh``, against the meshless
-    ``models.prefill`` and ``decode_step`` on the same arena params: the
-    same logits bits, the same tokens, exact launch counts; each timed."""
+    ``models.prefill`` and ``decode_step`` on the same params: the same
+    logits bits, the same tokens, exact launch counts (``flash`` flash
+    launches a prefill, all on the wgmma route, ``rms`` rmsnorm launches a
+    prefill and a decode step); each timed."""
     import torch
 
     from repro_torch import models
@@ -3089,10 +3112,9 @@ def mesh_serve(cfg, mesh, params) -> dict:
         _, mesh_prefill_s = _timed_cuda(lambda: prefill(placed, {"tokens": tokens}))
         _, plain_prefill_s = _timed_cuda(
             lambda: models.prefill(cfg, params, {"tokens": tokens}, impl="kernel"))
-    want = {"flash_attention": FLASH_PER_PREFILL,
-            "rmsnorm": RMS_PER_STEP * (1 + MESH_DECODE), "rmsnorm_backward": 0,
-            "paged_reloc_copy": 0, "non_causal": 0,
-            "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
+    want = {"flash_attention": flash, "rmsnorm": rms * (1 + MESH_DECODE),
+            "rmsnorm_backward": 0, "paged_reloc_copy": 0, "non_causal": 0,
+            "flash_routes": {"wgmma": flash, "simt": 0}}
     log(f"{cfg.name} mesh serving: launches {got}, expected {want}")
     if got != want:
         fail(f"{cfg.name} mesh serving: kernel launches {got} != {want}")
@@ -3204,6 +3226,94 @@ def mesh_train(cfg, mesh, root) -> dict:
     return out
 
 
+def mesh_moe(mesh) -> dict:
+    """Phase 12's MoE half: olmoe-1b-7b at its published widths, weights
+    made on the card from seed 0 (no arena): the serving check at
+    MOE_LAYERS layers, and one training step at MESH_MOE_TRAIN_LAYERS
+    layers through ``build_step`` on ``mesh`` and through the meshless
+    ``make_train_fn``, each on its own copy of the same weights: the same
+    loss, grad_norm and updated params bits, no flash launch, each rmsnorm
+    backward on its route."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.launch.steps import build_step, make_train_fn
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS)
+    params = models.init_params(cfg, 0, "cuda")
+    serve = mesh_serve(cfg, mesh, params, MOE_FLASH, MOE_RMS)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = cfg.replace(num_layers=MESH_MOE_TRAIN_LAYERS)
+    shape = ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = OptConfig(**TRAIN_OPT)
+    weights = models.init_params(cfg, 0, "cuda")
+    batch = to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ, step=0, seed=0), "cuda")
+    per_step = train_rms_launches(cfg)
+    # by ``bwd_route``: the q and k norms' rows (hd 128) on the tma route;
+    # the layer norms' and the final norm's (d 2048 in bf16: 256 16-byte
+    # vectors, over the tma route's 160) on the two_pass route
+    L = cfg.num_layers
+    routes = {"tma": 2 * L, "two_pass": 2 * L + 1}
+    runs, updated = {}, {}
+    for name, step in (("meshless", make_train_fn(cfg, opt)),
+                       ("mesh", build_step(cfg, shape, mesh, opt_cfg=opt).jitted)):
+        params = {n: t.clone().requires_grad_() for n, t in weights.items()}
+        state = init_opt_state(params)
+        zero_launch_counts()
+        (params, _, metrics), wall = _timed_cuda(lambda: step(params, state, batch))
+        got = {**launch_counts(), "non_causal": fa.launches_non_causal}
+        runs[name] = {"loss": metrics["loss"].item(), "wall_s": wall, "launches": got,
+                      "grad_norm": metrics["grad_norm"].item(),
+                      "backward_routes": dict(rn.backward_launches_by_route)}
+        updated[name] = {n: t.to_local() if hasattr(t, "to_local") else t
+                         for n, t in params.items()}
+        del params, state, metrics
+        torch.cuda.empty_cache()
+    want = {"flash_attention": 0, "rmsnorm": per_step["forward"],
+            "rmsnorm_backward": per_step["backward"], "paged_reloc_copy": 0,
+            "non_causal": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
+    log(f"{cfg.name} mesh training at {cfg.num_layers} layers: loss "
+        f"{runs['mesh']['loss']!r} (meshless {runs['meshless']['loss']!r}); launches "
+        f"{runs['mesh']['launches']}, expected {want}")
+    for name, r in runs.items():
+        if r["launches"] != want:
+            fail(f"{cfg.name} {name} training step: kernel launches {r['launches']} != "
+                 f"{want}")
+        if r["backward_routes"] != routes:
+            fail(f"{cfg.name} {name} training step: backward launches by route "
+                 f"{r['backward_routes']} != {routes}")
+    if not math.isfinite(runs["mesh"]["loss"]):
+        fail(f"{cfg.name} mesh training: the loss is not finite")
+    if runs["mesh"]["loss"] != runs["meshless"]["loss"]:
+        fail(f"{cfg.name} mesh training: the loss differs from the meshless step's")
+    if runs["mesh"]["grad_norm"] != runs["meshless"]["grad_norm"]:
+        fail(f"{cfg.name} mesh training: grad_norm {runs['mesh']['grad_norm']!r} differs "
+             f"from the meshless step's {runs['meshless']['grad_norm']!r}")
+    differ = [n for n, t in updated["meshless"].items()
+              if not torch.equal(updated["mesh"][n], t)]
+    if differ or set(updated["mesh"]) != set(updated["meshless"]):
+        fail(f"{cfg.name} mesh training: updated params {differ[:3]} differ from the "
+             "meshless step's")
+    del updated
+    log(f"{cfg.name} mesh training: the same loss, grad_norm and updated params bits "
+        "as the meshless step; step "
+        f"{runs['mesh']['wall_s']:.3f} s (meshless {runs['meshless']['wall_s']:.3f} s, "
+        "each its first call)")
+    return {"serve": serve, "train": {
+        "layers": cfg.num_layers, "launches": runs["mesh"]["launches"],
+        "backward_routes": runs["mesh"]["backward_routes"], "runs": runs,
+        "launches_per_step": per_step}}
+
+
 def mesh_int8() -> dict:
     """``int8_allreduce_mean`` over the one-rank NCCL group equals
     ``dequantize_int8(quantize_int8(x))`` on the card, bit for bit."""
@@ -3228,7 +3338,9 @@ def mesh_path() -> dict:
     """Phase 12: gemma3-1b at its published widths through the multi-device
     layer on ``make_local_mesh()`` (a one-rank NCCL group) in a fresh
     Workspace: one publish; the serving check on the arena of a stable
-    load; the meshless and the mesh ``Trainer``; the int8 all-reduce."""
+    load; the meshless and the mesh ``Trainer``; the int8 all-reduce. Then
+    olmoe-1b-7b's serving check and training step on the same mesh
+    (``mesh_moe``)."""
     import torch
     import torch.distributed as dist
 
@@ -3253,21 +3365,19 @@ def mesh_path() -> dict:
         log(f"{cfg.name} mesh: published {tr.app_name} in {publish_s:.1f} s; mesh "
             f"{tuple(mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}")
         del tr
-        serve = mesh_serve(cfg, mesh, params)
+        serve = mesh_serve(cfg, mesh, params, FLASH_PER_PREFILL, RMS_PER_STEP)
         del params, image
         torch.cuda.empty_cache()
         train = mesh_train(cfg, mesh, root)
         int8 = mesh_int8()
+        moe = mesh_moe(mesh)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
         if dist.is_initialized():
             dist.destroy_process_group()
     return {"publish_s": publish_s, "serve": serve, "train": train, "int8": int8,
-            "launches": {k: serve["launches"][k] + train["launches"][k]
-                         for k in ("flash_attention", "rmsnorm", "rmsnorm_backward",
-                                   "paged_reloc_copy", "non_causal")}
-            | {"flash_routes": serve["launches"]["flash_routes"]}}
+            "moe": moe}
 
 
 def main() -> None:
@@ -3383,11 +3493,15 @@ def main() -> None:
              "train": detail["train"]["launches"],
              "mesh serve": detail["mesh"]["serve"]["launches"],
              "mesh train": detail["mesh"]["train"]["launches"],
+             f"mesh {MOE_ARCH} serve": detail["mesh"]["moe"]["serve"]["launches"],
+             f"mesh {MOE_ARCH} train": detail["mesh"]["moe"]["train"]["launches"],
              "store": detail["store"]["launches"]}
     kernels[0]["launches_by_route"] = {p: c["flash_routes"] for p, c in paths.items()}
     kernels[0]["non_causal_by_path"] = {p: c.get("non_causal", 0) for p, c in paths.items()}
-    kernels[3]["launches_by_route"] = {"train": detail["train"]["backward_routes"],
-                                       "mesh train": detail["mesh"]["train"]["backward_routes"]}
+    kernels[3]["launches_by_route"] = {
+        "train": detail["train"]["backward_routes"],
+        "mesh train": detail["mesh"]["train"]["backward_routes"],
+        f"mesh {MOE_ARCH} train": detail["mesh"]["moe"]["train"]["backward_routes"]}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -73,3 +73,16 @@ def constrain(x, axes: Sequence[Optional[str]]):
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+def gather_at_use(params: dict, specs: dict) -> dict:
+    """FSDP weight unsharding at use-site: each entry of ``params`` that
+    ``specs`` names constrained to its logical axes with "embed" (the FSDP
+    axis) dropped, one all-gather a weight and use instead of a reduction
+    of every activation product over the sharded contraction dim (the
+    reference's choice); where a weight sharded on its contraction axis
+    over "data" met activations whose batch that axis shards, DTensor
+    would gather the activations' batch whole. The other entries pass
+    through; identity off a mesh, as ``constrain`` is."""
+    return {n: constrain(a, tuple(None if ax == "embed" else ax for ax in specs[n].axes))
+            if n in specs else a for n, a in params.items()}

@@ -142,6 +142,11 @@ def _tensors(x):
 
 
 def _nbytes(t) -> int:
+    """Bytes ``t`` holds on a device: none for a meta tensor (a prefill on
+    a mesh makes its cache's global shape on the meta device, then each
+    device's shard)."""
+    if t.device.type == "meta":
+        return 0
     return t.numel() * t.element_size()
 
 
@@ -190,8 +195,8 @@ class StepTrace:
             self.flops += reg[packet](*args, **kwargs, out_val=out)
         rets = func._schema.returns
         view = bool(rets) and rets[0].alias_info is not None and not rets[0].alias_info.is_write
-        if view:
-            return
+        if view or next(_tensors(out), None) is None:
+            return          # a view, or a query of metadata (``prim.device``): no bytes move
         self.hbm_bytes += sum(_nbytes(t) for t in _tensors(args))
         self.hbm_bytes += sum(_nbytes(t) for t in _tensors(kwargs.get("out", ())))
         for t in _tensors(out):

@@ -22,14 +22,10 @@ too: no served path needs it). The wgmma route reads its inputs
 with TMA, so ``tma_strides`` also checks that each base pointer is 16-byte
 aligned and each stride a multiple of 16 bytes, and raises otherwise.
 
-DTensors (a step on a device mesh, ``launch/steps.py``) are unwrapped with
-``local_map``, so a kernel only ever sees each device's local shard. The
-kernels need the sequence and head_dim axes whole: batch and heads may stay
-sharded (a pending partial sum, and a sharded sequence or head_dim, are
-redistributed first). K and V follow q's batch placement; on a mesh axis
-that shards q's heads they shard their heads too when the axis divides
-them, stay whole when there is one KV head (MQA: every local q head reads
-it), and otherwise q's heads are gathered as well.
+DTensors (a step on a device mesh, ``launch/steps.py``) are unwrapped by
+``dist.heads.on_local_heads``, so a kernel only ever sees each device's
+local shard: batch and heads may stay sharded, the sequence and head_dim
+are whole, and each device's K and V hold the KV heads its query heads read.
 
 ``launches`` counts kernel launches (plain-version calls do not count);
 ``launches_by_route`` counts them per route, and ``launches_non_causal``
@@ -44,6 +40,7 @@ import functools
 import torch
 
 from repro_torch.dist.context import is_dtensor
+from repro_torch.dist.heads import on_local_heads
 
 NEG_INF = -(2.0**30)       # finite on purpose: masked softmax stays NaN-free
 SOURCE = "flash_attention.cu"
@@ -189,48 +186,6 @@ def _launch(q, k, v, causal, window, q_offset):
     return o
 
 
-def _dtensor_placements(q, k):
-    """(q's placements, K's and V's) for the kernel on a mesh: see the
-    module docstring."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh = q.device_mesh
-    qp, kp = [], []
-    for i, p in enumerate(q.placements):
-        n = mesh.size(i)
-        if p.is_shard(0):
-            qp.append(Shard(0))
-            kp.append(Shard(0))
-        elif p.is_shard(2) and k.shape[2] % n == 0:
-            qp.append(Shard(2))
-            kp.append(Shard(2))
-        elif p.is_shard(2) and k.shape[2] == 1:
-            qp.append(Shard(2))
-            kp.append(Replicate())
-        else:
-            qp.append(Replicate())
-            kp.append(Replicate())
-    return tuple(qp), tuple(kp)
-
-
-def _flash_dtensor(q, k, v, causal, window, q_offset):
-    """``flash_attention`` on DTensors through ``local_map``."""
-    from torch.distributed.tensor import DTensor, Replicate
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
-    repl = (Replicate(),) * mesh.ndim
-    q, k, v = (t if is_dtensor(t) else DTensor.from_local(t, mesh, repl, run_check=False)
-               for t in (q, k, v))
-    qp, kp = _dtensor_placements(q, k)
-    q, k, v = (t if tuple(t.placements) == want else t.redistribute(mesh, want)
-               for t, want in ((q, qp), (k, kp), (v, kp)))
-    fn = local_map(functools.partial(flash_attention, causal=causal, window=window,
-                                     q_offset=q_offset),
-                   out_placements=list(qp), in_placements=(qp, kp, kp), device_mesh=mesh)
-    return fn(q, k, v)
-
-
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """(B,Sq,H,hd) x (B,Sk,KV,hd) -> (B,Sq,H,hd) attention, GQA by index.
 
@@ -238,7 +193,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     that autograd would have to differentiate raises rather than return a
     tensor detached from the graph."""
     if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
-        return _flash_dtensor(q, k, v, causal, window, q_offset)
+        return on_local_heads(functools.partial(flash_attention, causal=causal,
+                                                window=window, q_offset=q_offset), q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, q_offset=q_offset

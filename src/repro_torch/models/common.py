@@ -16,12 +16,14 @@ on CUDA, its plain version on the CPU).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.context import is_dtensor
+from repro_torch.dist.heads import on_local_heads
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -102,7 +104,14 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=512):
     """Flash-style online softmax over KV chunks (plain torch).
 
-    Memory: O(Sq * chunk) scores instead of O(Sq * Sk)."""
+    Memory: O(Sq * chunk) scores instead of O(Sq * Sk). On DTensors the
+    loop runs on each device's batch rows and heads (``on_local_heads``),
+    so its float32 accumulators are the device's shard, never the whole
+    batch's."""
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        return on_local_heads(functools.partial(
+            chunked_attention, causal=causal, window=window, q_offset=q_offset,
+            chunk=chunk), q, k, v)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     groups = h // kvh

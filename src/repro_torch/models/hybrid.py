@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.context import constrain, gather_at_use
+
 from . import mamba2
 from .common import (
     apply_rope,
@@ -56,12 +58,22 @@ def _groups(cfg):
 # --------------------------------------------------------------------------
 def param_specs(cfg) -> dict[str, ParamSpec]:
     d, V, dt = cfg.d_model, cfg.vocab_size, cfg.dtype
-    d2 = 2 * d
-    hd = _hd(cfg)
-    H, KV, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
     specs = {"embed/tokens": ParamSpec((V, d), dt, ("vocab", "embed"), "normal")}
     specs.update(mamba2.stacked_specs(cfg))
+    specs.update(_shared_specs(cfg))
     specs.update({
+        "final_norm/scale": ParamSpec((d,), dt, ("embed",), "ones"),
+        "lm_head/w": ParamSpec((d, V), dt, ("embed", "vocab"), "fan_in"),
+    })
+    return specs
+
+
+def _shared_specs(cfg) -> dict[str, ParamSpec]:
+    """The shared attention block's weights, which take concat(x, x0)."""
+    d2, dt = 2 * cfg.d_model, cfg.dtype
+    hd = _hd(cfg)
+    H, KV, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    return {
         "shared_attn/norm/scale": ParamSpec((d2,), dt, ("embed",), "ones"),
         "shared_attn/wq": ParamSpec((d2, H * hd), dt, ("embed", "heads"), "fan_in"),
         "shared_attn/wk": ParamSpec((d2, KV * hd), dt, ("embed", "kv_heads"), "fan_in"),
@@ -71,18 +83,24 @@ def param_specs(cfg) -> dict[str, ParamSpec]:
         "shared_attn/mlp/w_gate": ParamSpec((d2, ff), dt, ("embed", "mlp"), "fan_in"),
         "shared_attn/mlp/w_up": ParamSpec((d2, ff), dt, ("embed", "mlp"), "fan_in"),
         "shared_attn/mlp/w_down": ParamSpec((ff, d2), dt, ("mlp", "embed"), "fan_in"),
-        "shared_attn/out_proj/w": ParamSpec((d2, d), dt, ("embed", "embed_tp"), "fan_in"),
-        "final_norm/scale": ParamSpec((d,), dt, ("embed",), "ones"),
-        "lm_head/w": ParamSpec((d, V), dt, ("embed", "vocab"), "fan_in"),
-    })
-    return specs
+        "shared_attn/out_proj/w": ParamSpec((d2, cfg.d_model), dt, ("embed", "embed_tp"),
+                                            "fan_in"),
+    }
 
 
 # --------------------------------------------------------------------------
+def _embed(params, tokens):
+    """The token embeddings, x and the shared block's x0, with their rows
+    over the batch axes on a mesh (the mamba layers' placement), so that
+    concat(x, x0) keeps the batch sharded."""
+    return constrain(mamba2.embed(params, tokens), ("batch", "seq", None))
+
+
 def _shared_qkv(cfg, params, x, x0):
     """The shared block's norm over concat(x, x0) and its q/k/v, before
     RoPE: (B,S,H,hd), (B,S,KV,hd), (B,S,KV,hd)."""
     hd = _hd(cfg)
+    params = gather_at_use(params, _shared_specs(cfg))
     h = torch.cat([x, x0], -1)                                 # (B,S,2d)
     h = rms_norm(h, params["shared_attn/norm/scale"], cfg.norm_eps)
     q = split_heads(h @ params["shared_attn/wq"], cfg.num_heads, hd)
@@ -94,6 +112,7 @@ def _shared_qkv(cfg, params, x, x0):
 def _shared_out(cfg, params, x, o):
     """The shared block after attention: wo, the MLP at 2*d with its norm,
     and the projection back to d, added to x."""
+    params = gather_at_use(params, _shared_specs(cfg))
     a = merge_heads(o) @ params["shared_attn/wo"]
     hm = rms_norm(a, params["shared_attn/mlp_norm/scale"], cfg.norm_eps)
     a = a + mlp(hm, params["shared_attn/mlp/w_gate"], params["shared_attn/mlp/w_up"],
@@ -131,7 +150,7 @@ def _mamba_group(cfg, params, x, lo, hi, *, collect_state=False):
 
 
 def forward(cfg, params, batch, *, impl: str = "kernel"):
-    x = mamba2.embed(params, batch["tokens"])
+    x = _embed(params, batch["tokens"])
     x0 = x
     S = x.shape[1]
     sin, cos = rope_angles(torch.arange(S, device=x.device), _hd(cfg), cfg.rope_theta)
@@ -171,7 +190,7 @@ def prefill(cfg, params, batch, *, impl: str = "kernel", cache_len=None):
     (the prompt's length when that is larger), and every layer's states."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = mamba2.embed(params, tokens)
+    x = _embed(params, tokens)
     x0 = x
     sin, cos = rope_angles(torch.arange(S, device=x.device), _hd(cfg), cfg.rope_theta)
     cache = placed_like(init_cache(cfg, B, max(cache_len or S, S), cache_device(x)), x,
@@ -198,7 +217,7 @@ def decode_step(cfg, params, cache, tokens):
     B = tokens.shape[0]
     hd = _hd(cfg)
     S = cache["k"].shape[2]
-    x = mamba2.embed(params, tokens)
+    x = _embed(params, tokens)
     x0 = x
     pos = mamba2.next_pos(cache["pos"])          # the position being written
     if isinstance(pos, tuple):

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.context import constrain
+from repro_torch.dist.context import constrain, gather_at_use
 
 from .common import cache_device, cross_entropy, placed_like, rms_norm
 from .runtime import remat_wrap
@@ -250,19 +250,7 @@ def mamba_block(cfg, p, x, *, state=None, conv_state=None, return_state=False):
     d_inner = cfg.ssm_inner
     B_, S, _ = x.shape
     x = constrain(x, ("batch", "seq", None))
-    # FSDP weight unsharding at use-site (see transformer._gather_weights)
-    tmpl = block_specs(cfg)
-    p = {
-        n: (
-            constrain(
-                a,
-                tuple(None if ax == "embed" else ax for ax in tmpl[n].axes),
-            )
-            if n in tmpl
-            else a
-        )
-        for n, a in p.items()
-    }
+    p = gather_at_use(p, block_specs(cfg))
     h = rms_norm(x, p["norm/scale"], cfg.norm_eps)
     proj = h @ p["in_proj/w"]
     z, xBC, dt_raw = _split_proj(cfg, proj)

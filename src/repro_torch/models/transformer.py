@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.dist.context import constrain
+from repro_torch.dist.context import constrain, gather_at_use
 
 from . import moe
 from .common import (
@@ -243,28 +243,11 @@ def _cross_query(cfg, p, x):
     return split_heads(h @ p["xattn/wq"], cfg.num_heads, cfg.resolved_head_dim)
 
 
-def _gather_weights(cfg, p, *, cross=False):
-    """FSDP weight unsharding at use-site: drop the `embed`(->data) axis
-    from each block weight's placement, one all-gather per weight per use
-    instead of a reduction of every activation product over the sharded
-    contraction dim (the reference's choice)."""
-    tmpl = _block_specs(cfg, cross=cross)
-    out = {}
-    for n, a in p.items():
-        spec = tmpl.get(n)
-        if spec is None:
-            out[n] = a
-            continue
-        axes = tuple(None if ax in ("embed",) else ax for ax in spec.axes)
-        out[n] = constrain(a, axes)
-    return out
-
-
 def _block(cfg, p, x, sin, cos, *, window, impl, enc_out=None):
     """One layer -> (x, aux or None, kv): kv is (k, v), and for a decoder
     layer of an encoder-decoder (``enc_out`` given) (k, v, xk, xv)."""
     x = constrain(x, ("batch", "seq", None))  # keep activations DP-sharded
-    p = _gather_weights(cfg, p, cross=enc_out is not None)
+    p = gather_at_use(p, _block_specs(cfg, cross=enc_out is not None))
     h = _norm(p, "attn_norm", x, cfg)
     o, k, v = _self_attention(cfg, p, h, sin, cos, window=window, impl=impl)
     x = x + o

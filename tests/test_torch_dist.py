@@ -16,6 +16,7 @@ reference ``Trainer``,
 from __future__ import annotations
 
 import functools
+import json
 import os
 import socket
 import subprocess
@@ -85,13 +86,17 @@ def _run(tmp_path, world: int, case: str, inputs: dict, *args, timeout=120):
     return torch.load(out, weights_only=False)
 
 
-def _inputs(arch, seed=0):
-    rcfg = ref_config(arch, smoke=True)
+def _inputs(arch, seed=0, **overrides):
+    """The reference's smoke config of ``arch`` (with ``overrides``), its
+    seeded weights and a batch; the worker applies the same overrides."""
+    rcfg = ref_config(arch, smoke=True).replace(**overrides)
     params = {n: np.asarray(v) for n, v in ref_models.init_params(rcfg, seed).items()}
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, rcfg.vocab_size, (B, S + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
-    return rcfg, {"params": params, "batch": batch, "opt": OPT}
+    if rcfg.is_encdec:
+        batch["frames"] = rng.standard_normal((B, S, rcfg.d_model)).astype(np.float32)
+    return rcfg, {"params": params, "batch": batch, "opt": OPT, "overrides": overrides}
 
 
 def _reference_steps(rcfg, inp):
@@ -100,7 +105,8 @@ def _reference_steps(rcfg, inp):
     batch = {k: jnp.asarray(v) for k, v in inp["batch"].items()}
     p, _, metrics = jax.jit(ref_train_fn(rcfg, RefOptConfig(**inp["opt"])))(
         params, ref_init_opt_state(params), batch)
-    logits, cache = jax.jit(ref_prefill_fn(rcfg))(params, {"tokens": batch["tokens"]})
+    prompt = {k: v for k, v in batch.items() if k in ("tokens", "frames")}
+    logits, cache = jax.jit(ref_prefill_fn(rcfg))(params, prompt)
     tok = jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)
     decode, toks = jax.jit(ref_decode_fn(rcfg)), []
     for _ in range(DECODE_STEPS):
@@ -116,11 +122,65 @@ def _rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-370m"])
+_TRACE = r"""
+import json, sys
+import torch
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.dist import hlo_analysis
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import build_step
+from repro_torch.models import common
+
+arch, spec, B, S, impl, whole_vocabulary, overrides = json.loads(sys.argv[1])
+cfg = get_config(arch, smoke=True).replace(**overrides)
+mesh = dryrun.dryrun_mesh(spec)
+bundle = build_step(cfg, ShapeConfig("t", S, B, "train"), mesh, impl=impl)
+if whole_vocabulary:                 # the loss's only path before it had a sharded one
+    common.is_sharded = lambda logits: False
+shapes = set()
+record = hlo_analysis.StepTrace._record
+
+def seen(self, func, args, kwargs, out):
+    record(self, func, args, kwargs, out)
+    shapes.update((tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                  for t in hlo_analysis._tensors(out) if isinstance(t, torch.Tensor))
+
+hlo_analysis.StepTrace._record = seen
+_, mem = dryrun.trace_step(bundle, mesh)
+print(json.dumps({"shapes": sorted(shapes), "peak": mem["temp_size_in_bytes"]}))
+"""
+
+
+def trace_train_step(arch, mesh, *, B=8, S=64, impl="chunked", whole_vocabulary=False,
+                     **overrides):
+    """``arch``'s smoke config (with ``overrides``) traced through
+    ``build_step``'s train step on a fake ``mesh`` (``dryrun.dryrun_mesh``)
+    in a subprocess: the (shape, dtype) of every tensor an op made, and the
+    step's peak bytes. ``whole_vocabulary`` sends the loss down its
+    whole-vocabulary path."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    arg = json.dumps([arch, mesh, B, S, impl, whole_vocabulary, overrides])
+    res = subprocess.run([sys.executable, "-c", _TRACE, arg], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    return {(tuple(s), dt) for s, dt in got["shapes"]}, got["peak"]
+
+
+# the cache's placements over the "model" axis on a 2x2 mesh: gemma3-1b's one
+# KV head and the mamba states stay whole; two KV heads shard (seamless's,
+# and zamba2's shared block's)
+CACHE_MODEL_2X2 = {"gemma3-1b": {Replicate()}, "mamba2-370m": {Replicate()},
+                   "seamless-m4t-large-v2": {Shard(3)},
+                   "zamba2-7b": {Replicate(), Shard(3)}}
+
+
+@pytest.mark.parametrize("arch", list(CACHE_MODEL_2X2))
 def test_build_step_on_a_2x2_mesh_matches_the_unsharded_reference(tmp_path, arch):
     """4 ranks, 2x2 (data x model): the train step's loss, grad_norm and
     every updated parameter, the prefill logits and 4 greedy decode tokens
-    against the reference's unsharded steps."""
+    against the reference's unsharded steps (an encoder-decoder's frames go
+    to the train step and the prefill)."""
     rcfg, inp = _inputs(arch)
     got = _run(tmp_path, 4, "steps", inp, arch, "2x2")
     want = _reference_steps(rcfg, inp)
@@ -134,7 +194,7 @@ def test_build_step_on_a_2x2_mesh_matches_the_unsharded_reference(tmp_path, arch
     # the cache over the data axis (batch)
     assert got["placements"]["embed/tokens"] == [str(Shard(1)), str(Shard(0))]
     assert {tuple(p) for p in got["cache_placements"].values()} == {
-        (str(Shard(1)), str(Replicate()))}
+        (str(Shard(1)), str(m)) for m in CACHE_MODEL_2X2[arch]}
     # the loss took the vocabulary-parallel path, on this device's shard
     assert got["vocab_parallel_shards"] == [(B // 2, S, rcfg.vocab_size // 2)]
 

@@ -168,3 +168,38 @@ def test_cost_probe_equals_a_full_depth_count_on_a_3_layer_config():
     assert flops > 0 and probe["roofline"]["flops"] == pytest.approx(flops, rel=1e-9)
     assert coll > 0 and probe["roofline"]["coll_bytes"] == pytest.approx(coll, rel=1e-9)
     assert hbm > 0
+
+
+def test_step_trace_counts_no_bytes_for_a_meta_tensor():
+    """A tensor on the meta device holds no memory on any device (a prefill
+    on a mesh makes its cache's global shape there before each device's
+    shard): ``StepTrace`` counts none of its bytes, live or moved, and
+    counts a CPU tensor's."""
+    import torch
+
+    from repro_torch.dist.hlo_analysis import StepTrace
+
+    n = 256 * 1024 * 4                  # one float32 (256, 1024) tensor
+    # live: the zeros and the sum; moved: the zeros written, read, the sum written
+    for device, want in (("meta", (0, 0)), ("cpu", (2 * n, 3 * n))):
+        with StepTrace() as trace:
+            out = torch.zeros((256, 1024), device=device) + 1
+        assert (trace.peak_bytes, trace.hbm_bytes) == want, device
+        assert trace.ops == 2
+        del out
+
+
+def test_step_trace_counts_no_bytes_for_a_metadata_query():
+    """A query of a tensor's metadata (``prim.device``, which ``local_map``
+    and DTensor make many times a step) moves no bytes: ``StepTrace``
+    counts the op and none of its input's bytes."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist.hlo_analysis import StepTrace
+
+    with FakeTensorMode():
+        x = torch.empty(256, 1024)
+        with StepTrace() as trace:
+            assert torch.ops.prim.device.default(x).type == "cpu"
+    assert (trace.ops, trace.hbm_bytes, trace.peak_bytes) == (1, 0, 0)

@@ -22,12 +22,6 @@ the reductions it is given. Here:
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
-import sys
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,10 +36,10 @@ from repro_torch.models.common import (
     shard_label_logit,
 )
 from test_torch_dist import B as DIST_B
-from test_torch_dist import LOGIT_TOL, LOSS_TOL, STATE_TOL, _inputs, _reference_steps, _rel_l2, _run
+from test_torch_dist import (LOGIT_TOL, LOSS_TOL, STATE_TOL, _inputs, _reference_steps,
+                             _rel_l2, _run, trace_train_step)
 from test_torch_dist import S as DIST_S
 
-ROOT = Path(__file__).resolve().parents[1]
 B, S, V = 3, 7, 256
 GRAD_TOL = 1e-5          # relative L2 of dlogits
 
@@ -130,7 +124,8 @@ def test_label_logit_is_counted_on_exactly_one_shard():
         assert torch.equal((d != 0).sum(-1), inside.long())
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-370m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-370m", "zamba2-7b", "olmoe-1b-7b",
+                                  "qwen2-moe-a2.7b"])
 def test_build_step_on_a_1x4_mesh_matches_the_unsharded_reference(tmp_path, arch):
     """4 ranks, 1x4 (the vocabulary in quarters over "model", the batch
     whole): the train step's loss, grad_norm and every updated parameter,
@@ -167,41 +162,6 @@ def test_build_step_on_a_2x1_mesh_keeps_the_loss_on_each_batch_shard(tmp_path, a
     np.testing.assert_allclose(got["logits"].numpy(), want["logits"], rtol=0, atol=LOGIT_TOL)
     np.testing.assert_array_equal(got["tokens"].numpy(), want["tokens"])
 
-_TRACE = r"""
-import json, sys
-import torch
-from repro_torch.configs import ShapeConfig, get_config
-from repro_torch.dist import hlo_analysis
-from repro_torch.launch import dryrun
-from repro_torch.launch.steps import build_step
-from repro_torch.models import common
-
-B, S, V = 8, 64, 4096
-cfg = get_config("gemma3-1b", smoke=True).replace(vocab_size=V)
-mesh = dryrun.dryrun_mesh("1x4")
-bundle = build_step(cfg, ShapeConfig("t", S, B, "train"), mesh)
-shapes = []
-record = hlo_analysis.StepTrace._record
-
-def seen(self, func, args, kwargs, out):
-    record(self, func, args, kwargs, out)
-    shapes.extend(tuple(t.shape) for t in hlo_analysis._tensors(out)
-                  if isinstance(t, torch.Tensor))
-
-hlo_analysis.StepTrace._record = seen
-out = {}
-for path in ("vocab_parallel", "whole_vocabulary"):
-    if path == "whole_vocabulary":       # the loss's path before the repair
-        common.is_sharded = lambda logits: False
-    shapes.clear()
-    _, mem = dryrun.trace_step(bundle, mesh)
-    whole = [s for s in shapes if s and s[-1] == V and torch.Size(s[:-1]).numel() == B * S]
-    out[path] = {"peak": mem["temp_size_in_bytes"], "whole": len(whole),
-                 "shards": sum(1 for s in shapes if s == (B, S, V // 4))}
-print(json.dumps(out))
-"""
-
-
 def test_traced_step_on_a_fake_1x4_mesh_never_holds_the_whole_vocabulary():
     """gemma3-1b's smoke config at a vocabulary of 4096 (so that the loss's
     tensors dominate the step), batch 8 x 64, traced on a fake 1x4 mesh.
@@ -212,12 +172,16 @@ def test_traced_step_on_a_fake_1x4_mesh_never_holds_the_whole_vocabulary():
     by more than one float32 logits tensor of the whole vocabulary (the
     gathered logits; at this size the two paths' peaks measured 19.19 and
     6.60 MB)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", _TRACE], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=300)
-    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
-    got = json.loads(res.stdout.strip().splitlines()[-1])
+    B, S, V = 8, 64, 4096
+    got = {}
+    for path in ("vocab_parallel", "whole_vocabulary"):
+        shapes, peak = trace_train_step("gemma3-1b", "1x4", B=B, S=S, vocab_size=V,
+                                        whole_vocabulary=path == "whole_vocabulary")
+        shapes = {s for s, _ in shapes}
+        got[path] = {"peak": peak, "shards": (B, S, V // 4) in shapes,
+                     "whole": any(s and s[-1] == V and torch.Size(s[:-1]).numel() == B * S
+                                  for s in shapes)}
     new, old = got["vocab_parallel"], got["whole_vocabulary"]
-    assert new["whole"] == 0 and new["shards"] > 0
-    assert old["whole"] > 0
+    assert not new["whole"] and new["shards"]
+    assert old["whole"]
     assert old["peak"] - new["peak"] > 8 * 64 * 4096 * 4, got

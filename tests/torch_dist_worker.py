@@ -7,9 +7,10 @@ It imports torch and the port only (no JAX):
     python tests/torch_dist_worker.py CASE INPUTS.pt OUT.pt [ARG ...]
 
 Cases: ``steps`` (``build_step``'s train, prefill and decode steps on a
-mesh, with each loss's local logits shape where it took the
-vocabulary-parallel path; on a one-device mesh also the meshless steps in
-this process),
+mesh of the smoke config, changed by ``inputs["overrides"]`` where given,
+with each loss's local logits shape where it took the vocabulary-parallel
+path and each MoE expert product's local buffer shape; on a one-device
+mesh also the meshless steps in this process),
 ``greedy`` (a prefill and a greedy decode step at batch 1 on a mesh that
 shards the vocabulary, for several weight sets), ``trainer`` (the
 ``Trainer`` on a mesh), ``trainer_local`` (a meshless ``Trainer`` and one
@@ -32,7 +33,7 @@ from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch.mesh import mesh_from_spec
 from repro_torch.launch.steps import build_step, make_decode_fn, make_prefill_fn, make_train_fn
-from repro_torch.models import common
+from repro_torch.models import common, moe
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 
 DECODE_STEPS = 4
@@ -46,6 +47,12 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+def _prompt(batch: dict) -> dict:
+    """A prefill's inputs from a train batch: the tokens, and an
+    encoder-decoder's frames."""
+    return {k: v for k, v in batch.items() if k in ("tokens", "frames")}
+
+
 def _meshless(cfg, inp):
     """The port's meshless train, prefill and decode on the same inputs."""
     specs = models.param_specs(cfg)
@@ -57,7 +64,7 @@ def _meshless(cfg, inp):
            "params": {n: t.detach() for n, t in p.items()}}
     plain = params_from_numpy(inp["params"], specs, device="cpu")
     with torch.no_grad():
-        logits, cache = make_prefill_fn(cfg, impl="kernel")(plain, {"tokens": batch["tokens"]})
+        logits, cache = make_prefill_fn(cfg, impl="kernel")(plain, _prompt(batch))
         out["logits"] = logits
         tok, toks = torch.argmax(logits[:, -1:], -1).to(torch.int32), []
         dec = make_decode_fn(cfg)
@@ -69,7 +76,7 @@ def _meshless(cfg, inp):
 
 
 def case_steps(inp, arch, spec):
-    cfg = get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True).replace(**inp.get("overrides", {}))
     mesh = mesh_from_spec(spec, "cpu")
     specs = models.param_specs(cfg)
     batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
@@ -83,19 +90,25 @@ def case_steps(inp, arch, spec):
         calls.append(tuple(logits.to_local().shape))
         return vocab_parallel(logits, labels)
 
-    common.vocab_parallel_nll = spy
+    experts, buffers = moe.experts, []
+
+    def expert_spy(buf, *w):
+        buffers.append(tuple(buf.to_local().shape))
+        return experts(buf, *w)
+
+    common.vocab_parallel_nll, moe.experts = spy, expert_spy
     try:
         p, _, metrics = train.jitted(params, init_opt_state(params), batch)
     finally:
-        common.vocab_parallel_nll = vocab_parallel
+        common.vocab_parallel_nll, moe.experts = vocab_parallel, experts
     out = {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
            "params": {n: _full(t).detach() for n, t in p.items()},
            "placements": {n: [str(x) for x in t.placements] for n, t in p.items()},
-           "vocab_parallel_shards": calls}
+           "vocab_parallel_shards": calls, "expert_shards": buffers}
     plain = params_from_numpy(inp["params"], specs, device="cpu")
     with torch.no_grad():
         prefill = build_step(cfg, ShapeConfig("p", S, B, "prefill"), mesh, impl="kernel")
-        logits, cache = prefill.jitted(plain, {"tokens": batch["tokens"]})
+        logits, cache = prefill.jitted(plain, _prompt(batch))
         out["logits"] = _full(logits)
         out["cache_placements"] = {n: [str(x) for x in t.placements]
                                    for n, t in cache.items() if hasattr(t, "placements")}
