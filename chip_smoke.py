@@ -40,8 +40,9 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    each call counted once on the route ``bwd_route`` gives, the training
    shapes on the tma route, its tickets back at 0; timed at the training
    shapes beside ``torch.autograd.grad`` through ``F.rms_norm``, the tma
-   route without clusters and the two_pass route, no reading faster than
-   its bound;
+   route without clusters and the two_pass route, and at olmoe-1b-7b's
+   wide rows (8192, 2048) on the two_pass route beside the same autograd
+   call, no reading faster than its bound;
 3. main path: ``repro_torch.launch.serve.serve`` with that app: load with
    ``strategy="stable"``, which builds the arena on the card with one
    paged_reloc_copy launch (the params are views of it), prefill 4 prompts
@@ -142,16 +143,26 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    ``cross_entropy``'s whole-tensor loss and its autograd gradient, the
    same bits on a second call, with
    the peak allocation and time of the whole loss and of one shard; then
-   publish, an epoch-path start (opt/* INIT), steps, the step-3 checkpoint
+   3 eager ``make_train_fn`` steps from the same init (their times, the
+   last profiled: the eager step's idle share); then
+   publish, an epoch-path start (opt/* INIT) that compiles the step (a
+   warm-up on a snapshot of the state, then one CUDA graph capture), steps
+   (each a replay), the step-3 checkpoint
    (a management event, published on a background thread), a failure
-   injected at step 4, a restart on the table-driven path from opt/step,
-   and step 4. It must launch exactly 2 paged copies, 0 flash and, a step,
+   injected at step 4, a restart on the table-driven path from opt/step
+   that hits the compile cache and loads its world into the program's
+   arena, and step 4. It must launch exactly 2 paged copies, 0 flash and, a step,
    the rmsnorm forward and backward counts of ``train_rms_launches`` (209
-   and 105); restart once from step 3, with opt/* INIT at the first start
+   and 105, credited by the replays); the starts' (compile_source,
+   compiled_as) must read ("compiled", "cuda_graph") then ("memory",
+   "cuda_graph"), one program cached, every step a replay, the restart's
+   arena the program's (the same address), the backward's ticket back at
+   0; restart once from step 3, with opt/* INIT at the first start
    and DIRECT after; the checkpoint's bytes, loaded back on the host, must
    equal the trainer's snapshot and the restart's arena the host image;
    step 3's loss must be the same bits before and after the restart, and
-   every loss finite; every backward on the tma route. One more step is
+   every loss finite; every backward on the tma route. One more replay of
+   the cached program is
    profiled, and the profiler must show one tma backward kernel for each of
    its 105 backward calls and no two_pass kernel;
 12. the multi-device layer on one card: gemma3-1b at its published widths
@@ -163,18 +174,26 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    same bits, the tokens equal, launches exactly 26 flash (wgmma) and 105
    rmsnorm a prefill and a step. Training: a meshless ``Trainer`` and one
    with ``mesh=make_local_mesh()``, 3 steps of 2 x 4096 tokens each, no
-   checkpoint: the same loss bits; the mesh run's launches exactly 1 paged
+   checkpoint, each step compiled once (a CUDA graph capture) and
+   replayed: the same loss bits; the meshless run's losses and final
+   params the bits of the same 3 steps run eagerly through
+   ``make_train_fn`` from the same published state (or within 1e-5
+   relative, if a library kernel picks another algorithm under capture);
+   each program's reserved memory recorded, and the first trainer's pool
+   freed before the second captures; the mesh run's launches exactly 1 paged
    copy, 209 rmsnorm forward and 105 backward a step (all on the tma
-   route), 0 flash; one more mesh step profiled, each backward one tma
-   kernel; its params
-   DTensors over views of its arena, which holds the trained values. Then
+   route), 0 flash; one more replay of the mesh program profiled, each
+   backward one tma kernel; its params
+   DTensors over views of its arena, which holds the trained values; the
+   eager mesh step is timed beside the replayed one. Then
    ``int8_allreduce_mean`` over the group equals ``dequantize_int8(
    quantize_int8(x))``. The step, prefill and decode step times are
    printed beside the meshless ones (DTensor's host cost). Then olmoe-1b-7b
    at its published widths, weights made on the card from seed 0: at 8 of
    its 16 layers the same serving check (8 flash (wgmma) and 33 rmsnorm a
    prefill, 33 a step), and at 2 layers one train step through
-   ``build_step`` on the mesh and through the meshless ``make_train_fn``:
+   ``build_step`` on the mesh, captured in a CUDA graph and replayed, and
+   through the meshless ``make_train_fn`` eagerly:
    the same loss, grad_norm and updated params bits, 0 flash, 17 rmsnorm
    forward and 9 backward (4 on the tma route, 5 on two_pass);
 13. the store tier, run right after phase 3 (it needs phase 1's v1 bake,
@@ -215,6 +234,7 @@ beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -256,6 +276,7 @@ RMS_FWD_TRAIN = {(8192, 1152): 105, (32768, 256): 52, (8192, 256): 52}
 # and final norms (d 2048 in bf16, 256 16-byte vectors a row, over the tma
 # route's 160) and the q and k norms (16 heads of 128 a token)
 RMS_BWD_MOE = {(8192, 2048): "two_pass", (131072, 128): "tma"}
+RMS_BWD_WIDE = (8192, 2048)      # its rows that phase 2 also times (two_pass)
 RMS_BWD_TRAIN_KERNELS = (     # the instantiations those shapes run (bf16, tma)
     "rmsnorm_bwd_tma_kernel<__nv_bfloat16, __nv_bfloat16, 5, 4, 1>",
     "rmsnorm_bwd_tma_kernel<__nv_bfloat16, __nv_bfloat16, 1, 1, 4>")
@@ -1032,6 +1053,72 @@ def two_pass_backward(x, s, dy):
     return dx, ds
 
 
+def time_backward(shape, g, tma: bool = True) -> dict:
+    """One backward shape (bf16) timed: the kernel on ``bwd_route``'s route
+    and the library's backward (``torch.autograd.grad`` through
+    ``F.rms_norm``, graphs built beforehand) in turns, the plain version,
+    profiler device times and the bound; for rows on the tma route
+    (``tma``) also the two_pass route's kernels on the same rows
+    (``two_pass_backward``) and the same grid over one row a CTA (what no
+    row count shrinks). Inputs rotate out of L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+
+    rows, d = shape
+    sets_n = int(2 * L2_BYTES // (2 * rows * d * 2)) + 1
+    x, s, dy = rms_bwd_inputs(shape, torch.bfloat16, g, sets_n)
+    sets = [(x[i], dy[i]) for i in range(sets_n)]
+    xs = [x[i].detach().requires_grad_() for i in range(sets_n)]
+    sg = s.detach().requires_grad_()
+    ys = [F.rms_norm(xi, (d,), weight=sg, eps=1e-6) for xi in xs]
+    lib_sets = [(xs[i], ys[i], dy[i]) for i in range(sets_n)]
+    kernel = rotating(lambda xi, dyi: rn._launch_backward(xi, s, dyi, 1e-6), sets)
+    library = rotating(lambda xi, yi, dyi: torch.autograd.grad(
+        yi, (xi, sg), dyi, retain_graph=True), lib_sets)
+    ms, library_ms = time_pair_ms(kernel, library)
+    _, _, r0, _, stride = rn._rows(x[0], s)
+    row = {
+        "shape": shape, "route": rn.bwd_route(r0, dy[0], s, stride),
+        "ms": ms, "library_ms": library_ms,
+        "plain_ms": time_ms(rotating(
+            lambda xi, dyi: rn.rmsnorm_backward_plain(xi, s, dyi), sets)),
+        "device_ms": device_ms(kernel, f"rmsnorm backward {rows}x{d}"),
+        "library_device_ms": device_ms(library, f"F.rms_norm backward {rows}x{d}"),
+    }
+    if tma:
+        two_pass = rotating(lambda xi, dyi: two_pass_backward(xi, s, dyi), sets)
+        row["two_pass_ms"] = time_ms(two_pass)
+        row["two_pass_device_ms"] = device_ms(two_pass, f"two_pass {rows}x{d}")
+    del sets, lib_sets, xs, ys, x, dy
+    if tma:
+        # the same grid over one row a CTA: the launch, the ring's first
+        # tile and the tail after the rows, which no row count shrinks
+        one = rms_bwd_inputs((rn._BWD_CTAS, d), torch.bfloat16, g, 4)
+        row["one_row_a_cta_device_ms"] = device_ms(rotating(
+            lambda xi, dyi: rn._launch_backward(xi, one[1], dyi, 1e-6),
+            [(one[0][i], one[2][i]) for i in range(4)]), f"tma, 264 rows of {d}")
+        del one
+    row["bytes"] = (3 * rows * d + 2 * d) * 2      # x, dy, dx; scale, dscale
+    row["flops"] = float(RMS_BWD_FLOPS * rows * d)
+    row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], F32_FLOPS)
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    for key in ("device_ms", "two_pass_device_ms"):
+        if key in row and row[key] < row["bound_ms"]:
+            fail(f"rmsnorm backward {shape}: {key} {row[key]} ms is below its bound "
+                 f"{row['bound_ms']} ms")
+    log(f"rmsnorm backward {shape} ({row['route']}): kernel {row['ms']:.4f} ms a call "
+        f"(device {row['device_ms'] * 1e3:.3f} us, {row['bound_share']:.1%} of the bound), "
+        f"plain {row['plain_ms']:.4f} ms, F.rms_norm backward "
+        f"{row['library_ms']:.4f} ms (device {row['library_device_ms'] * 1e3:.3f} us),"
+        f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})" + (
+            f"; one row a CTA {row['one_row_a_cta_device_ms'] * 1e3:.3f} us; two_pass "
+            f"{row['two_pass_ms']:.4f} ms (device {row['two_pass_device_ms'] * 1e3:.3f} us)"
+            if tma else ""))
+    return row
+
+
 def check_rmsnorm_backward() -> dict:
     """rmsnorm's backward kernel against ``rmsnorm_backward_plain`` on each
     route ``bwd_route`` picks: the sweep's cases in float32 and bfloat16
@@ -1043,14 +1130,9 @@ def check_rmsnorm_backward() -> dict:
     DSCALE_TOL of the float32 plain sum's largest value (plus bf16's
     rounding of each value), both the same bits on a second call, one
     launch counted on the expected route a call, and the tma route's
-    ticket back at 0. Then each training shape timed: the kernel and the
-    library's backward (``torch.autograd.grad`` through ``F.rms_norm``,
-    graphs built beforehand) in turns, the plain version, profiler device
-    times, the bound, and beside them the two_pass route's kernels on the
-    same rows (``two_pass_backward``) and the same grid over one row a CTA
-    (what no row count shrinks), with inputs rotated out of L2."""
+    ticket back at 0. Then each training shape timed (``time_backward``),
+    and olmoe-1b-7b's wide rows (RMS_BWD_WIDE, on the two_pass route)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm import ops as rn
 
@@ -1116,54 +1198,11 @@ def check_rmsnorm_backward() -> dict:
 
     per_shape = []
     for shape, n in RMS_BWD_TRAIN.items():
-        rows, d = shape
-        sets_n = int(2 * L2_BYTES // (2 * rows * d * 2)) + 1
-        x, s, dy = rms_bwd_inputs(shape, torch.bfloat16, g, sets_n)
-        sets = [(x[i], dy[i]) for i in range(sets_n)]
-        xs = [x[i].detach().requires_grad_() for i in range(sets_n)]
-        sg = s.detach().requires_grad_()
-        ys = [F.rms_norm(xi, (d,), weight=sg, eps=1e-6) for xi in xs]
-        lib_sets = [(xs[i], ys[i], dy[i]) for i in range(sets_n)]
-        kernel = rotating(lambda xi, dyi: rn._launch_backward(xi, s, dyi, 1e-6), sets)
-        library = rotating(lambda xi, yi, dyi: torch.autograd.grad(
-            yi, (xi, sg), dyi, retain_graph=True), lib_sets)
-        two_pass = rotating(lambda xi, dyi: two_pass_backward(xi, s, dyi), sets)
-        ms, library_ms = time_pair_ms(kernel, library)
-        row = {
-            "shape": shape, "ms": ms, "library_ms": library_ms,
-            "plain_ms": time_ms(rotating(
-                lambda xi, dyi: rn.rmsnorm_backward_plain(xi, s, dyi), sets)),
-            "device_ms": device_ms(kernel, f"rmsnorm backward {rows}x{d}"),
-            "library_device_ms": device_ms(library, f"F.rms_norm backward {rows}x{d}"),
-            "two_pass_ms": time_ms(two_pass),
-            "two_pass_device_ms": device_ms(two_pass, f"two_pass {rows}x{d}"),
-        }
-        del sets, lib_sets, xs, ys, x, dy
-        # the same grid over one row a CTA: the launch, the ring's first
-        # tile and the tail after the rows, which no row count shrinks
-        one = rms_bwd_inputs((rn._BWD_CTAS, d), torch.bfloat16, g, 4)
-        row["one_row_a_cta_device_ms"] = device_ms(rotating(
-            lambda xi, dyi: rn._launch_backward(xi, one[1], dyi, 1e-6),
-            [(one[0][i], one[2][i]) for i in range(4)]), f"tma, 264 rows of {d}")
-        del one
-        row["bytes"] = (3 * rows * d + 2 * d) * 2      # x, dy, dx; scale, dscale
-        row["flops"] = float(RMS_BWD_FLOPS * rows * d)
-        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], F32_FLOPS)
-        row["bound_share"] = row["bound_ms"] / row["device_ms"]
-        for key in ("device_ms", "two_pass_device_ms"):
-            if row[key] < row["bound_ms"]:
-                fail(f"rmsnorm backward {shape}: {key} {row[key]} ms is below its bound "
-                     f"{row['bound_ms']} ms")
+        row = time_backward(shape, g)
         row["weight"] = n
         per_shape.append(row)
-        log(f"rmsnorm backward {shape} x{n}: kernel {row['ms']:.4f} ms a call (device "
-            f"{row['device_ms'] * 1e3:.3f} us, {row['bound_share']:.1%} of the bound), "
-            f"plain {row['plain_ms']:.4f} ms, F.rms_norm backward "
-            f"{row['library_ms']:.4f} ms (device {row['library_device_ms'] * 1e3:.3f} us),"
-            f" bound {row['bound_ms']:.5f} ms ({row['bound_by']}); one row a CTA "
-            f"{row['one_row_a_cta_device_ms'] * 1e3:.3f} us; two_pass "
-            f"{row['two_pass_ms']:.4f} ms (device "
-            f"{row['two_pass_device_ms'] * 1e3:.3f} us)")
+    # olmoe-1b-7b's wide rows (phase 12), on the route bwd_route gives them
+    wide = time_backward(RMS_BWD_WIDE, g, tma=False)
     torch.cuda.empty_cache()
     total = sum(RMS_BWD_TRAIN.values())
     totals = {key: sum(r[key] * r["weight"] for r in per_shape) / total
@@ -1182,6 +1221,7 @@ def check_rmsnorm_backward() -> dict:
                     F32_FLOPS),
         "_cases": errs,
         "_per_shape": per_shape,
+        "_wide_rows": wide,
     }
 
 
@@ -2871,6 +2911,42 @@ def check_backward_kernels(counts: dict, calls: int, what: str) -> None:
     log(f"{what}: the profiler shows {calls} backward kernels, one a call, all tma")
 
 
+def eager_steps(cfg, params, opt, steps: int, what: str) -> dict:
+    """``steps`` eager ``make_train_fn`` steps (no compiled program) on a
+    copy of ``params`` with fresh moments, over the stream's batches 0, 1,
+    ...: each loss and wall time (the first pays the process's first
+    calls), and the last step profiled (its idle share). The reference
+    beside the compiled step's replays, in the same run."""
+    import torch
+
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.optim import init_opt_state
+
+    leaves = {n: t.detach().clone().requires_grad_() for n, t in params.items()}
+    state = init_opt_state(leaves)
+    step = make_train_fn(cfg, opt)
+    batches = [to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, step=i, seed=0), "cuda")
+               for i in range(steps)]
+    losses, step_s = [], []
+    for b in batches[:-1]:
+        (_, _, m), dt = _timed_cuda(lambda: step(leaves, state, b))
+        losses.append(m["loss"].item())
+        step_s.append(dt)
+    prof = profiled(lambda: {"loss": float(step(leaves, state, batches[-1])[2]["loss"])},
+                    f"{what} eager train step")
+    losses.append(prof["loss"])
+    out = {"losses": losses, "step_s": step_s + [prof["wall_s"]],
+           "profile_idle_share": prof["idle_share"],
+           "profile_device_busy_ms": prof["device_busy_ms"]}
+    del leaves, state, batches
+    torch.cuda.empty_cache()
+    log(f"{what} eager steps (make_train_fn, no graph): losses {losses}, step s "
+        f"{out['step_s']}, profiled idle share {prof['idle_share']}")
+    return out
+
+
 def train_path() -> dict:
     """Phase 11: gemma3-1b trained at its published widths through the
     port's Trainer: publish, an epoch-path start (opt/* INIT), steps, the
@@ -2887,13 +2963,13 @@ def train_path() -> dict:
     from repro_torch.kernels import launch_counts, zero_launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rn
-    from repro_torch.launch.steps import make_train_fn
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainConfig, Trainer
 
     class CheckedTrainer(Trainer):
-        """At each start: the opt/* symbols' relocation types, and at a
-        restart a host copy of the arena as loaded (outside ``total_s``)."""
+        """At each start: the opt/* symbols' relocation types, the arena's
+        address, and at a restart a host copy of the arena as loaded
+        (outside ``total_s``)."""
 
         def _startup(self):
             out = super()._startup()
@@ -2903,6 +2979,8 @@ def train_path() -> dict:
                             if table.name_at(r["symbol_name"]).startswith("opt/")})
             arena = self.image.arena.to("cpu", copy=True) if self.starts else None
             self.starts.append({"opt_types": types, "arena": arena,
+                                "arena_ptr": self.image.arena.data_ptr(),
+                                "reserved_gb": torch.cuda.memory_reserved() / 1e9,
                                 "check_s": time.perf_counter() - t})
             return out
 
@@ -2928,6 +3006,7 @@ def train_path() -> dict:
         t1 = time.perf_counter()
         vocab = vocab_parallel_check(cfg, params, batch0)
         vocab["seconds"] = time.perf_counter() - t1
+        eager = eager_steps(cfg, params, tcfg.opt, 3, cfg.name)
         del params, batch0
         torch.cuda.empty_cache()
 
@@ -2971,6 +3050,30 @@ def train_path() -> dict:
         log(f"{cfg.name} training: restarted once from opt/step = {resumed[1]}; opt/* "
             f"INIT at the first start, DIRECT after the checkpoint; step-3 loss "
             f"{before!r} before and after the restart")
+        program = tr.program
+        sources = [(st["compile_source"], st["compiled_as"]) for st in res.startup_stats]
+        if sources != [("compiled", "cuda_graph"), ("memory", "cuda_graph")]:
+            fail(f"{cfg.name} training: (compile_source, compiled_as) by start {sources}, "
+                 "not a capture then a memory hit")
+        if len(tr.compile_cache.memory) != 1 or program.replays != steps_run:
+            fail(f"{cfg.name} training: {len(tr.compile_cache.memory)} programs cached and "
+                 f"{program.replays} replays for {steps_run} steps (one capture, every "
+                 "step a replay)")
+        ptrs = [st["arena_ptr"] for st in tr.starts]
+        if ptrs[0] != ptrs[1] or program.image.arena.data_ptr() != ptrs[0]:
+            fail(f"{cfg.name} training: the restart loaded into arena {ptrs[1]:#x}, not "
+                 f"the program's {ptrs[0]:#x}")
+        if program.scratch is None or int(program.scratch[0].item()) != 0:
+            fail(f"{cfg.name} training: the replays' rmsnorm backward ticket is not 0")
+        if res.losses[:3] != eager["losses"]:
+            log(f"{cfg.name} training: steps 0-2 replayed {res.losses[:3]} differ from the "
+                f"eager steps' {eager['losses']} (relative "
+                f"{[abs(a - b) / abs(b) for a, b in zip(res.losses, eager['losses'])]})")
+        log(f"{cfg.name} training: one capture ({program.stats}), a memory hit at the "
+            f"restart, which loaded into the program's arena {ptrs[0]:#x}; "
+            f"{program.replays} replays; the backward's ticket 0; steps 0-2 "
+            f"{'the same bits as' if res.losses[:3] == eager['losses'] else 'unlike'} "
+            "the eager steps'")
 
         t1 = time.perf_counter()
         host = tr.ws.load(tr.app_name, strategy="stable")
@@ -2996,15 +3099,18 @@ def train_path() -> dict:
         tr.starts[1]["arena"] = None
         tr.ckpt.last_snapshot = None
 
-        step_fn = make_train_fn(cfg, tcfg.opt, impl=tcfg.impl)
         batch = to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
                                      seq_len=TRAIN_SEQ, step=TRAIN_STEPS, seed=tcfg.seed),
                           "cuda")
+        replays = program.replays
         profile = profiled(
-            lambda: {"loss": float(step_fn(tr.params, tr.opt_state, batch)[2]["loss"])},
-            f"{cfg.name} train step", count=RMS_BWD_KERNELS.values())
+            lambda: {"loss": float(program(tr.params, tr.opt_state, batch)[2]["loss"])},
+            f"{cfg.name} train step (a replay)", count=RMS_BWD_KERNELS.values())
+        if program.replays != replays + 1:
+            fail(f"{cfg.name} training: the profiled step was not one replay of the "
+                 "cached program")
         check_backward_kernels(profile["kernel_counts"], per_step["backward"],
-                               f"{cfg.name} profiled train step")
+                               f"{cfg.name} profiled train step (a replay)")
 
         # steady: every step but the process's first and step 3 of the first
         # start, which ran while the step-3 checkpoint published
@@ -3031,15 +3137,22 @@ def train_path() -> dict:
             "host_load_s": host_load_s, "grad_check": grads, "profile": profile,
             "vocab_parallel": vocab,
             "n_params": models.n_params(cfg),
+            "program": program.stats, "replays": program.replays,
+            "capture_s": program.stats["capture_s"],
+            "compile_s": res.startup_stats[0]["compile_s"],
+            "pool_gb": program.stats["pool_bytes"] / 1e9,
+            "reserved_gb_by_start": [st["reserved_gb"] for st in tr.starts],
+            "eager": eager, "eager_step_s": eager["step_s"][1],
+            "eager_losses_equal": res.losses[:3] == eager["losses"],
         }
         log(f"{cfg.name} training: " + json.dumps({k: out[k] for k in (
-            "steady_step_s", "step_during_checkpoint_publish_s", "tokens_per_s",
-            "model_tflop_s", "bf16_peak_share",
-            "publish_s", "checkpoint_save_s", "checkpoint_snapshot_s",
+            "steady_step_s", "eager_step_s", "step_during_checkpoint_publish_s",
+            "tokens_per_s", "model_tflop_s", "bf16_peak_share", "compile_s", "capture_s",
+            "pool_gb", "publish_s", "checkpoint_save_s", "checkpoint_snapshot_s",
             "restart_to_first_step_s", "peak_allocated_gb")}))
         if peak > 70e9:
             log(f"{cfg.name} training: peak allocation {peak / 1e9:.1f} GB is above 70 GB")
-        del tr, step_fn, batch
+        del tr, batch, program
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -3138,14 +3251,63 @@ def mesh_serve(cfg, mesh, params, flash: int, rms: int) -> dict:
     return out
 
 
+def eager_reference(cfg, mesh, root, tcfg) -> dict:
+    """The same MESH_TRAIN_STEPS steps as phase 12's trainers, run eagerly
+    through ``make_train_fn`` (no compiled program) from the same published
+    state (a stable load of the root's world): each loss and the final
+    params (kept on the host). Then 2 more eager steps through
+    ``build_step``'s train step on ``mesh`` over that state, timed: the
+    eager mesh step beside the replayed one, in the same run."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.steps import build_step, make_train_fn, place_state
+    from repro_torch.link import Workspace
+
+    ws = Workspace.open(root, bake_arenas=False)
+    image = ws.load(f"train:{cfg.name}:chip", strategy="stable", device="cuda")
+    names = list(models.param_specs(cfg))
+    params = {n: image.tensors[n].requires_grad_() for n in names}
+    opt = {"m": {n: image.tensors[f"opt/m/{n}"] for n in names},
+           "v": {n: image.tensors[f"opt/v/{n}"] for n in names},
+           "step": image.tensors["opt/step"].view(())}
+    batch = lambda i: to_device(make_batch(vocab_size=cfg.vocab_size,
+                                           global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                           step=i, seed=tcfg.seed), "cuda")
+    step = make_train_fn(cfg, tcfg.opt, impl=tcfg.impl)
+    losses, step_s = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        b = batch(i)
+        (_, _, m), dt = _timed_cuda(lambda: step(params, opt, b))
+        losses.append(m["loss"].item())
+        step_s.append(dt)
+    final = {n: t.detach().to("cpu") for n, t in params.items()}
+    bundle = build_step(cfg, ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+                        opt_cfg=tcfg.opt)
+    mp, mo = place_state(params, opt, bundle.shardings, mesh)
+    mesh_s = []
+    for i in range(2):
+        b = batch(MESH_TRAIN_STEPS + i)
+        mesh_s.append(_timed_cuda(lambda: bundle.jitted(mp, mo, b))[1])
+    del image, params, opt, mp, mo, bundle, ws
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "final": final, "mesh_step_s": mesh_s}
+
+
 def mesh_train(cfg, mesh, root) -> dict:
     """Phase 12's training half: a meshless ``Trainer`` and one on ``mesh``
     over the same published world, MESH_TRAIN_STEPS steps each and no
-    checkpoint: the same loss bits; the mesh run's launches exact (every
-    backward on the tma route) and its params DTensors over views of its
-    arena, trained in place. Then one more step of ``build_step``'s train
-    step on the mesh trainer's params, profiled: one tma backward kernel
-    for each of its backward calls."""
+    checkpoint, each step compiled once (a captured CUDA graph) and
+    replayed: the same loss bits; the meshless run's losses and final
+    params the bits of the same steps run eagerly (``eager_reference``);
+    each program's reserved memory, the first freed before the second
+    captures; the mesh run's launches exact (every backward on the tma
+    route, credited by the replays) and its params DTensors over views of
+    its arena, trained in place. Then one more replay of the mesh
+    program, profiled: one tma backward kernel for each backward call."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -3153,7 +3315,6 @@ def mesh_train(cfg, mesh, root) -> dict:
     from repro_torch.kernels import launch_counts, zero_launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rn
-    from repro_torch.launch.steps import build_step
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainConfig, Trainer
 
@@ -3161,8 +3322,11 @@ def mesh_train(cfg, mesh, root) -> dict:
     tcfg = TrainConfig(steps=MESH_TRAIN_STEPS, checkpoint_every=10**9,
                        opt=OptConfig(**TRAIN_OPT))
     per_step = train_rms_launches(cfg)
-    runs = {}
+    runs, eager = {}, None
     for name, m in (("meshless", None), ("mesh", mesh)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
         tr = Trainer(root, cfg, shape, tcfg, device="cuda", mesh=m)
         zero_launch_counts()
         res, wall = _timed_cuda(tr.run)
@@ -3171,10 +3335,20 @@ def mesh_train(cfg, mesh, root) -> dict:
         if routes != {"tma": per_step["backward"] * MESH_TRAIN_STEPS, "two_pass": 0}:
             fail(f"{cfg.name} {name} training: backward launches by route {routes}, "
                  "not all tma")
+        start = res.startup_stats[0]
+        if (start["compile_source"], start["compiled_as"]) != ("compiled", "cuda_graph"):
+            fail(f"{cfg.name} {name} training: the step was not captured: {start}")
+        if tr.program.replays != MESH_TRAIN_STEPS:
+            fail(f"{cfg.name} {name} training: {tr.program.replays} replays for "
+                 f"{MESH_TRAIN_STEPS} steps")
         runs[name] = {"losses": res.losses, "step_s": res.step_s, "wall_s": wall,
-                      "launches": got, "backward_routes": routes,
-                      "start": res.startup_stats[0]}
-        if m is not None:
+                      "launches": got, "backward_routes": routes, "start": start,
+                      "program": tr.program.stats,
+                      "reserved_before_gb": reserved0 / 1e9,
+                      "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+        if m is None:
+            final = {n: t.detach().to("cpu") for n, t in tr.params.items()}
+        else:
             arena = tr.image.arena
             lo, hi = arena.data_ptr(), arena.data_ptr() + arena.numel()
             outside = [n for n, p in tr.params.items()
@@ -3187,19 +3361,49 @@ def mesh_train(cfg, mesh, root) -> dict:
             local = tr.params["final_norm/scale"].to_local()
             if not torch.equal(view, local.detach().reshape(-1).view(torch.uint8)):
                 fail(f"{cfg.name} mesh training: the arena does not hold the trained params")
-            step = build_step(cfg, shape, mesh, opt_cfg=tcfg.opt).jitted
             batch = to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
                                          seq_len=TRAIN_SEQ, step=MESH_TRAIN_STEPS,
                                          seed=tcfg.seed), "cuda")
+            program = tr.program
             profile = profiled(
-                lambda: {"loss": float(step(tr.params, tr.opt_state, batch)[2]["loss"])},
-                f"{cfg.name} mesh train step", count=RMS_BWD_KERNELS.values())
+                lambda: {"loss": float(program(tr.params, tr.opt_state, batch)[2]["loss"])},
+                f"{cfg.name} mesh train step (a replay)", count=RMS_BWD_KERNELS.values())
             check_backward_kernels(profile["kernel_counts"], per_step["backward"],
-                                   f"{cfg.name} profiled mesh train step")
+                                   f"{cfg.name} profiled mesh train step (a replay)")
             runs[name]["profile"] = profile
-            del step, batch
+            del batch, program, arena, view, local
         del tr
+        gc.collect()
         torch.cuda.empty_cache()
+        runs[name]["reserved_after_free_gb"] = torch.cuda.memory_reserved() / 1e9
+        runs[name]["allocated_after_free_gb"] = torch.cuda.memory_allocated() / 1e9
+        runs[name]["segments_held"] = held_segments()
+        if runs[name]["reserved_after_free_gb"] > reserved0 / 1e9 + 1.0:
+            fail(f"{cfg.name} {name} training: {runs[name]['reserved_after_free_gb']:.2f} "
+                 f"GB reserved after the trainer was dropped (before it "
+                 f"{reserved0 / 1e9:.2f}): its program's memory was not freed; segments "
+                 f"still holding a live block: {runs[name]['segments_held']}")
+        log(f"{cfg.name} {name} training: captured in {start['compile_s']:.2f} s "
+            f"({json.dumps(runs[name]['program'])}); reserved "
+            f"{runs[name]['reserved_before_gb']:.2f} -> {runs[name]['reserved_gb']:.2f} -> "
+            f"{runs[name]['reserved_after_free_gb']:.2f} GB after the trainer was dropped")
+        if m is None:
+            eager = eager_reference(cfg, mesh, root, tcfg)
+            differ = [n for n, t in final.items() if not torch.equal(t, eager["final"][n])]
+            log(f"{cfg.name} meshless training: replayed losses {res.losses}, eager "
+                f"{eager['losses']}; {len(differ)} of {len(final)} final params differ")
+            if res.losses != eager["losses"]:
+                rel = max(abs(a - b) / abs(b) for a, b in zip(res.losses, eager["losses"]))
+                if rel > 1e-5:
+                    fail(f"{cfg.name} meshless training: replayed losses {res.losses} are "
+                         f"{rel} off the eager steps' {eager['losses']}")
+                log(f"{cfg.name} meshless training: the replayed losses are {rel} off the "
+                    "eager steps' bits (within 1e-5)")
+            elif differ:
+                fail(f"{cfg.name} meshless training: final params {differ[:3]} differ from "
+                     "the eager steps'")
+            del final
+            eager.pop("final")
     want = {"flash_attention": 0, "rmsnorm": per_step["forward"] * MESH_TRAIN_STEPS,
             "rmsnorm_backward": per_step["backward"] * MESH_TRAIN_STEPS,
             "paged_reloc_copy": 1, "non_causal": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
@@ -3214,16 +3418,36 @@ def mesh_train(cfg, mesh, root) -> dict:
         fail(f"{cfg.name} mesh training: a loss is not finite")
     steady = {k: statistics.median(r["step_s"][1:]) for k, r in runs.items()}
     out = {"launches": got, "backward_routes": runs["mesh"]["backward_routes"],
-           "launches_per_step": per_step, "runs": runs,
+           "launches_per_step": per_step, "runs": runs, "eager": eager,
            "step_s": steady["mesh"], "plain_step_s": steady["meshless"],
            "step_overhead_s": steady["mesh"] - steady["meshless"],
+           "eager_step_s": eager["step_s"][-1], "eager_mesh_step_s": eager["mesh_step_s"][-1],
            "first_step_s": runs["mesh"]["step_s"][0],
-           "plain_first_step_s": runs["meshless"]["step_s"][0]}
-    log(f"{cfg.name} mesh training: the same loss bits as the meshless trainer; params "
-        "are views of the arena, trained in place; " + json.dumps(
+           "plain_first_step_s": runs["meshless"]["step_s"][0],
+           "pool_gb": {k: r["program"]["pool_bytes"] / 1e9 for k, r in runs.items()},
+           "capture_s": {k: r["program"]["capture_s"] for k, r in runs.items()}}
+    log(f"{cfg.name} mesh training: the same loss bits as the meshless trainer, both "
+        "captured; params are views of the arena, trained in place; " + json.dumps(
             {k: out[k] for k in ("step_s", "plain_step_s", "step_overhead_s",
-                                 "first_step_s", "plain_first_step_s")}))
+                                 "eager_step_s", "eager_mesh_step_s", "first_step_s",
+                                 "plain_first_step_s", "pool_gb", "capture_s")}))
     return out
+
+
+def held_segments(top: int = 6) -> list:
+    """The card's largest reserved segments that still hold a live block:
+    (segment MB, live MB, the live blocks' sizes in MB, the segment's
+    stream and pool), largest first."""
+    import torch
+
+    held = []
+    for seg in torch.cuda.memory_snapshot():
+        live = [b["size"] for b in seg["blocks"] if b["state"] == "active_allocated"]
+        if live:
+            held.append((seg["total_size"] / 2**20, sum(live) / 2**20,
+                         sorted((x / 2**20 for x in live), reverse=True)[:4],
+                         seg.get("stream"), str(seg.get("segment_pool_id"))))
+    return sorted(held, reverse=True)[:top]
 
 
 def mesh_moe(mesh) -> dict:
@@ -3242,8 +3466,9 @@ def mesh_moe(mesh) -> dict:
     from repro_torch.kernels import launch_counts, zero_launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rn
-    from repro_torch.launch.steps import build_step, make_train_fn
+    from repro_torch.launch.steps import build_step, make_train_fn, place_state
     from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train.program import LoweredStep
 
     cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS)
     params = models.init_params(cfg, 0, "cuda")
@@ -3264,19 +3489,32 @@ def mesh_moe(mesh) -> dict:
     L = cfg.num_layers
     routes = {"tma": 2 * L, "two_pass": 2 * L + 1}
     runs, updated = {}, {}
-    for name, step in (("meshless", make_train_fn(cfg, opt)),
-                       ("mesh", build_step(cfg, shape, mesh, opt_cfg=opt).jitted)):
+    for name in ("meshless", "mesh"):
         params = {n: t.clone().requires_grad_() for n, t in weights.items()}
         state = init_opt_state(params)
+        if name == "meshless":                # eager: the reference
+            step = make_train_fn(cfg, opt)
+            compile_s = pool = None
+        else:                                 # the mesh step, captured
+            bundle = build_step(cfg, shape, mesh, opt_cfg=opt)
+            params, state = place_state(params, state, bundle.shardings, mesh)
+            t0 = time.perf_counter()
+            step = LoweredStep(bundle.jitted, params, state, batch, device="cuda").compile()
+            compile_s, pool = time.perf_counter() - t0, step.stats["pool_bytes"]
+            if step.compiled_as != "cuda_graph":
+                fail(f"{cfg.name} mesh training step: compiled as {step.compiled_as}")
         zero_launch_counts()
         (params, _, metrics), wall = _timed_cuda(lambda: step(params, state, batch))
         got = {**launch_counts(), "non_causal": fa.launches_non_causal}
         runs[name] = {"loss": metrics["loss"].item(), "wall_s": wall, "launches": got,
                       "grad_norm": metrics["grad_norm"].item(),
-                      "backward_routes": dict(rn.backward_launches_by_route)}
+                      "backward_routes": dict(rn.backward_launches_by_route),
+                      "compile_s": compile_s,
+                      "pool_gb": None if pool is None else pool / 1e9}
         updated[name] = {n: t.to_local() if hasattr(t, "to_local") else t
                          for n, t in params.items()}
-        del params, state, metrics
+        del params, state, metrics, step
+        gc.collect()
         torch.cuda.empty_cache()
     want = {"flash_attention": 0, "rmsnorm": per_step["forward"],
             "rmsnorm_backward": per_step["backward"], "paged_reloc_copy": 0,
@@ -3304,10 +3542,11 @@ def mesh_moe(mesh) -> dict:
         fail(f"{cfg.name} mesh training: updated params {differ[:3]} differ from the "
              "meshless step's")
     del updated
-    log(f"{cfg.name} mesh training: the same loss, grad_norm and updated params bits "
-        "as the meshless step; step "
-        f"{runs['mesh']['wall_s']:.3f} s (meshless {runs['meshless']['wall_s']:.3f} s, "
-        "each its first call)")
+    log(f"{cfg.name} mesh training: the captured mesh step has the same loss, grad_norm "
+        f"and updated params bits as the eager meshless step; captured in "
+        f"{runs['mesh']['compile_s']:.3f} s (pool {runs['mesh']['pool_gb']:.2f} GB), its "
+        f"first replay {runs['mesh']['wall_s']:.3f} s (meshless eager "
+        f"{runs['meshless']['wall_s']:.3f} s, its first call)")
     return {"serve": serve, "train": {
         "layers": cfg.num_layers, "launches": runs["mesh"]["launches"],
         "backward_routes": runs["mesh"]["backward_routes"], "runs": runs,

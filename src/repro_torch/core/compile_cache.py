@@ -2,18 +2,21 @@
 
 The second late-binding tax an ML job pays at startup is compiling its
 programs. Stable linking's discipline applies verbatim: the program
-(architecture x shape x mesh) cannot change during an epoch, so its compiled
-form can be materialized at end_mgmt and *loaded* at job start.
+(architecture x shape x mesh) cannot change during an epoch, so it is
+compiled once and *loaded* at every later start of the job.
 
-Keys are content hashes over (program key, mesh key, world hash). This
-copy keeps the in-memory half of the reference package's cache only: the
-reference serializes AOT-compiled XLA executables to disk, and the port's
-steps run eagerly (the multi-device layer included: ``launch/steps.py``
-builds placed steps, not compiled ones), so there is nothing to
-serialize; every miss compiles and is recorded as ``"compiled"`` in the
-stats (benchmarks stay honest). The natural thing for the AOT half to
-cache is a captured CUDA graph of a step, which waits for ROADMAP Queue B2
-item 3. ``Workspace`` constructs one so its API keeps its shape.
+Keys are content hashes over the program's identity (``cache_key``, the
+reference's bytes). On the card the compiled form is a captured CUDA graph
+of the training step (``train/program.py``): a fixed sequence of kernels
+over buffers at fixed places, which replays without Python, autograd or
+DTensor dispatch, as an XLA executable runs without its tracer. A captured
+graph has no form that outlives its process, so this cache keeps the
+reference's own fallback for a backend whose executables cannot be
+serialized: it caches in memory only. ``source`` is ``"compiled"`` on a
+miss and ``"memory"`` on a hit; ``"disk"`` never occurs, ``path`` names
+where a serialized executable would lie and nothing is written there, and
+``deserialize_s`` stays 0.0. ``Workspace`` constructs one, and the
+``Trainer`` compiles its step through it.
 """
 
 from __future__ import annotations
@@ -36,15 +39,26 @@ def cache_key(*parts: str) -> str:
 @dataclass
 class CompileStats:
     key: str = ""
-    source: str = ""          # "memory" | "compiled"
+    source: str = ""          # "disk" | "memory" | "compiled"
     lower_s: float = 0.0
     compile_s: float = 0.0
+    deserialize_s: float = 0.0
 
 
 @dataclass
 class CompileCache:
     root: Path
     memory: dict[str, Any] = field(default_factory=dict)
+
+    def path(self, key: str) -> Path:
+        """Where a serialized executable for ``key`` would lie (never
+        written: a captured graph has no serialized form)."""
+        return Path(self.root) / f"{key[:32]}.graph"
+
+    def get(self, key: str):
+        """The executable cached for ``key``, or None; no stats, no compile
+        (a caller that must place its inputs for a hit looks first)."""
+        return self.memory.get(key)
 
     def get_or_compile(
         self,
@@ -53,10 +67,10 @@ class CompileCache:
         *,
         stats: Optional[CompileStats] = None,
     ):
-        """Return a compiled executable for ``key``.
+        """Return ``(executable, stats)`` for ``key``.
 
         ``lower_fn`` must return an object with a ``compile()`` method
-        (called only on a cache miss); the result is cached in memory.
+        (both called only on a cache miss); the result is cached in memory.
         """
         stats = stats if stats is not None else CompileStats()
         stats.key = key

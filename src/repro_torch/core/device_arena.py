@@ -12,7 +12,11 @@ runs when a load names a device:
     device blob laid out as ``blob_layout`` — through two pinned staging
     buffers on CUDA, never by wrapping the read-only payload mmap;
 (c) launch ``paged_reloc_copy`` once into a ``torch.zeros`` arena (padding
-    and unnamed pages read as zero, so every byte is defined);
+    and unnamed pages read as zero, so every byte is defined) — or, given
+    ``into`` (an earlier device image of the same slot layout), into that
+    image's arena, zeroed first: a compiled step whose kernels read fixed
+    addresses gets each start's world there, with no second resident copy
+    of the state (``train/program.py``);
 (d) apply the CAST/INIT/unaligned rows (``meta["host_rows"]``) after the
     kernel, as the reference folds its gather in before them: the rows run
     on the host with the executor's row code against a host copy of each
@@ -30,10 +34,14 @@ runs when a load names a device:
 
 Slot bytes equal the host image's (``tests/test_torch_paged.py``). Device
 images never enter the ``EpochCache``: each load owns its arena.
+``slot_layout_digest`` names a layout: an arena's addresses are part of
+a compiled program's identity.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import time
 
 import numpy as np
@@ -134,8 +142,37 @@ def _apply_host_rows(executor, table: RelocationTable, flat: torch.Tensor,
         span.copy_(torch.from_numpy(data))
 
 
-def apply_table_on_device(executor, app, table: RelocationTable, stats, device):
-    """Steps (a)-(g) of the module docstring; returns the ``LoadedImage``."""
+def slot_layout_digest(slots: dict) -> str:
+    """A digest of an arena's slot layout (each slot's name, offset, bytes,
+    dtype and shape, in the layout's order)."""
+    rows = [[s.name, s.offset, s.nbytes, s.dtype, list(s.shape)] for s in slots.values()]
+    return hashlib.blake2b(json.dumps(rows).encode(), digest_size=16).hexdigest()
+
+
+def _target_arena(into, table: RelocationTable, dev: torch.device, pages: int):
+    """``into``'s arena as the kernel's int32 pages, zeroed, after checking
+    that it is ``pages`` pages on ``dev`` laid out as ``table``'s slots."""
+    from repro_torch.kernels.paged_reloc_copy import PAGE_SHAPE
+
+    arena = into.arena
+    if arena.device.type != dev.type or dev.index not in (None, arena.device.index):
+        raise ValueError(f"the destination arena is on {arena.device}, not {dev}")
+    if into.table is None or into.table.slots() != table.slots():
+        raise ValueError("the destination arena's slot layout differs from the table's")
+    if arena.numel() != pages * PAGE_BYTES or arena.storage_offset() % 4:
+        raise ValueError(f"the destination arena holds {arena.numel()} bytes, not the "
+                         f"table's {pages} pages of {PAGE_BYTES}")
+    out = arena.view(torch.int32).view((pages,) + PAGE_SHAPE)
+    with torch.no_grad():
+        out.zero_()
+    return out
+
+
+def apply_table_on_device(executor, app, table: RelocationTable, stats, device,
+                          into=None):
+    """Steps (a)-(g) of the module docstring; returns the ``LoadedImage``.
+    With ``into`` the arena is ``into.arena``: its tensors, and every view
+    taken of it before, hold this load's bytes."""
     from repro_torch.kernels.paged_reloc_copy import PAGE_SHAPE, paged_reloc_copy
 
     from .executor import LoadedImage, paged_payload_bytes
@@ -156,8 +193,11 @@ def apply_table_on_device(executor, app, table: RelocationTable, stats, device):
     t1 += stats.upload_s
 
     arena_pages = align_up(table.arena_size, PAGE_BYTES) // PAGE_BYTES
-    arena = torch.zeros((arena_pages,) + PAGE_SHAPE, dtype=torch.int32,
-                        device=dev)
+    if into is None:
+        arena = torch.zeros((arena_pages,) + PAGE_SHAPE, dtype=torch.int32,
+                            device=dev)
+    else:
+        arena = _target_arena(into, table, dev, arena_pages)
     paged_reloc_copy(blob, arena, src, dst)                       # (c)
     _sync(dev)
     t2 = time.perf_counter()

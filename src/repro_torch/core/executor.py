@@ -486,6 +486,7 @@ class Executor:
         strategy: str = "auto",
         world: Optional[World] = None,
         device=None,
+        into=None,
     ):
         """Load an application image via a registered strategy.
 
@@ -497,6 +498,9 @@ class Executor:
         ``device`` (a torch device or its name) builds the arena there; only
         strategies registered with ``takes_device=True`` accept one, the
         rest raise ``ValueError``. ``None`` keeps the numpy host image.
+        ``into`` (an earlier device ``LoadedImage`` of the same slot layout)
+        builds the arena in that image's arena instead of a new one, on its
+        device (``core/device_arena.py``).
         """
         # Imported lazily: core stays importable without the link facade,
         # and the registry module itself imports core.
@@ -505,6 +509,8 @@ class Executor:
         world = world or self.manager.world()
         app = world.resolve(app_name)
         fn = resolve_strategy(strategy, mode=self.manager.mode)
+        if into is not None:
+            device = into.arena.device if device is None else device
         if device is not None and not getattr(fn, "takes_device", False):
             raise ValueError(
                 f"load strategy {strategy!r} builds no device arena "
@@ -512,7 +518,9 @@ class Executor:
             )
         if device is None:
             return fn(self, app, world)
-        return fn(self, app, world, device=device)
+        if into is None:
+            return fn(self, app, world, device=device)
+        return fn(self, app, world, device=device, into=into)
 
     def load_all(
         self,
@@ -548,7 +556,7 @@ class Executor:
 
     # ------------------------------------------------------------- internals
     def _load_stable(
-        self, app: StoreObject, world: World, device=None
+        self, app: StoreObject, world: World, device=None, into=None
     ) -> LoadedImage:
         stats = LoadStats(strategy="stable")
         t0 = time.perf_counter()
@@ -568,7 +576,7 @@ class Executor:
         table = RelocationTable.load(path)
         table.check_fresh(key, app.content_hash)
         stats.table_load_s = time.perf_counter() - t0
-        return self._apply_table(app, table, stats, device)
+        return self._apply_table(app, table, stats, device, into)
 
     def _build_arena_entry(self, app: StoreObject, key: str) -> ArenaEntry:
         """Fill path of the epoch-resident arena cache: parse the sidecar
@@ -807,7 +815,7 @@ class Executor:
         return image
 
     def _load_dynamic(
-        self, app: StoreObject, world: World, device=None
+        self, app: StoreObject, world: World, device=None, into=None
     ) -> LoadedImage:
         stats = LoadStats(strategy="dynamic")
         t0 = time.perf_counter()
@@ -818,10 +826,10 @@ class Executor:
         )
         stats.resolve_s = time.perf_counter() - t0
         stats.probes = resolver.probe_count
-        return self._apply_table(app, table, stats, device)
+        return self._apply_table(app, table, stats, device, into)
 
     def _load_indexed(
-        self, app: StoreObject, world: World, device=None
+        self, app: StoreObject, world: World, device=None, into=None
     ) -> LoadedImage:
         """Dynamic-shaped load that resolves through the symbol index —
         the management-time fallback (``auto`` maps here while the world is
@@ -860,7 +868,7 @@ class Executor:
                 nbytes=lambda t: int(getattr(t.rows, "nbytes", 0)),
             )
         stats.resolve_s = time.perf_counter() - t0
-        return self._apply_table(app, table, stats, device)
+        return self._apply_table(app, table, stats, device, into)
 
     def _bake_arena(self, app: StoreObject, table: RelocationTable, key: str) -> float:
         """Pre-apply ``table`` into a page-aligned arena image on disk.
@@ -948,14 +956,14 @@ class Executor:
 
     def _apply_table(
         self, app: StoreObject, table: RelocationTable, stats: LoadStats,
-        device=None,
+        device=None, into=None,
     ) -> LoadedImage:
         if device is not None:
             # built on the device with the paged_reloc_copy kernel; never
-            # cached: each device load owns its arena
+            # cached: each device load owns its arena (or ``into``'s)
             from .device_arena import apply_table_on_device
 
-            return apply_table_on_device(self, app, table, stats, device)
+            return apply_table_on_device(self, app, table, stats, device, into)
         t0 = time.perf_counter()
         arena = np.empty(table.arena_size, dtype=np.uint8)
         kernels: dict[str, str] = {}

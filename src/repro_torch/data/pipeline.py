@@ -91,22 +91,42 @@ class SyntheticTokens:
 
 class Prefetcher:
     """Bounded background prefetch; ``transform`` (e.g. sharded device_put)
-    runs on the consumer thread so device state stays single-threaded."""
+    runs on the consumer thread so device state stays single-threaded.
+    ``close()`` ends the producer thread, which an endless source would
+    otherwise keep blocked on a full queue for the process's life, holding
+    this object and what ``transform`` refers to."""
 
     def __init__(self, it: Iterator, depth: int = 2, transform=None):
         self._it = it
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._transform = transform
         self._done = object()
+        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless ``close()`` comes first (then False)."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def _run(self):
         try:
             for item in self._it:
-                self._q.put(item)
+                if not self._put(item):
+                    return
         finally:
-            self._q.put(self._done)
+            self._put(self._done)
+
+    def close(self) -> None:
+        """Stop the producer and wait for its thread to end."""
+        self._stop.set()
+        self._thread.join()
 
     def __iter__(self):
         return self

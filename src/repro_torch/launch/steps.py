@@ -20,7 +20,10 @@ The training step (``make_train_fn``) takes the loss and its gradients
 with autograd's backward where the reference takes ``jax.value_and_grad``,
 accumulates microbatches in float32 and divides by their count, then runs
 ``adamw_update``. The step runs eagerly (there is no ``jax.jit``): the
-name ``jitted`` is kept so a reader finds the reference's counterpart.
+name ``jitted`` is kept so a reader finds the reference's counterpart,
+and the trainer compiles it by capturing it in a CUDA graph
+(``train/program.py``). ``place_state`` places a train step's state at
+its shardings once, so the step places nothing and trains it in place.
 Inside ``fn`` a plain tensor meeting a DTensor (a mask, a position) is
 taken as replicated (``implicit_replication``).
 """
@@ -122,6 +125,30 @@ def place_tree(tree, mesh, shardings):
         else:
             out[k] = place(v, mesh, sh)
     return out
+
+
+def place_state(params: dict, opt_state: dict, shardings: dict, mesh):
+    """A train step's state (whole tensors, the same on every rank) as
+    DTensors at the step's shardings (``StepBundle.shardings``): on a mesh
+    of one device the tensors themselves, wrapped (``DTensor.from_local``,
+    no copy: a view of a device arena stays one); otherwise each rank's
+    shard, copied (``distribute_tensor``). Params become leaves that
+    require grad. The placements are the step's own, so ``jitted`` places
+    nothing and trains the state in place."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if mesh.size() == 1:
+        wrap = lambda t, pl: DTensor.from_local(t.detach(), mesh, pl, run_check=False)
+    else:
+        wrap = lambda t, pl: distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+    p_sh, o_sh = shardings["params"], shardings["opt"]
+    params = {n: wrap(t, p_sh[n]).requires_grad_() for n, t in params.items()}
+    opt_state = {
+        "m": {n: wrap(t, o_sh["m"][n]) for n, t in opt_state["m"].items()},
+        "v": {n: wrap(t, o_sh["v"][n]) for n, t in opt_state["v"].items()},
+        "step": wrap(opt_state["step"], o_sh["step"]),
+    }
+    return params, opt_state
 
 
 # -------------------------------------------------------------------- steps
@@ -271,6 +298,9 @@ def build_step(
         o_sh = opt_shardings(cfg, mesh, rules)
 
         def jitted(params, opt_state, batch):
+            # state placed by ``place_state`` passes through unchanged, so
+            # the step can be captured in a CUDA graph (train/program.py):
+            # each op here is host-side or a kernel, none reads a value back
             params = _trainable(place_tree(params, mesh, p_sh))
             opt_state = place_tree(opt_state, mesh, o_sh)
             batch = place_tree(batch, mesh, in_sh)

@@ -50,8 +50,10 @@ Device arenas: the table-driven strategies (``stable``, ``prefetch``,
 ``dynamic``, ``indexed``, hence ``auto``) are registered with
 ``takes_device=True`` and accept ``device=`` — the executor then builds the
 arena on that device with the ``paged_reloc_copy`` kernel
-(``core/device_arena.py``). The baked-arena strategies and ``lazy`` take no
-device (``DEVICE_TODO``); ``Executor.load`` raises ``ValueError`` for them.
+(``core/device_arena.py``) — and ``into=``, an earlier device image whose
+arena the load overwrites in place (a trainer's compiled step owns it).
+The baked-arena strategies and ``lazy`` take no device (``DEVICE_TODO``);
+``Executor.load`` raises ``ValueError`` for them.
 
 Blue/green rollover: the epoch-resident strategies (``stable-mmap-cached``,
 ``stable-shm``) are generation-addressed — their cache keys hash the app's
@@ -92,7 +94,8 @@ def register_strategy(
     Re-registering a name replaces it (latest wins), so tests and notebooks
     can shadow built-ins locally. ``takes_device=True`` declares that the
     strategy accepts ``device=`` (a fourth, keyword argument) and builds its
-    arena there.
+    arena there, and ``into=`` (an earlier device image to load into; passed
+    only when the caller gives one).
     """
 
     def _register(f: LoadStrategy) -> LoadStrategy:
@@ -171,8 +174,8 @@ def strategy_takes_device(name: str, *, mode: Mode) -> bool:
 
 # ------------------------------------------------------------------ built-ins
 @register_strategy("stable", takes_device=True)
-def _stable(executor, app, world, device=None):
-    return executor._load_stable(app, world, device)
+def _stable(executor, app, world, device=None, into=None):
+    return executor._load_stable(app, world, device, into)
 
 
 @register_strategy("stable-mmap")
@@ -196,13 +199,13 @@ def _stable_remote(executor, app, world):
 
 
 @register_strategy("dynamic", takes_device=True)
-def _dynamic(executor, app, world, device=None):
-    return executor._load_dynamic(app, world, device)
+def _dynamic(executor, app, world, device=None, into=None):
+    return executor._load_dynamic(app, world, device, into)
 
 
 @register_strategy("indexed", takes_device=True)
-def _indexed(executor, app, world, device=None):
-    return executor._load_indexed(app, world, device)
+def _indexed(executor, app, world, device=None, into=None):
+    return executor._load_indexed(app, world, device, into)
 
 
 @register_strategy("lazy")
@@ -213,7 +216,7 @@ def _lazy(executor, app, world):
 
 
 @register_strategy("prefetch", takes_device=True)
-def _prefetch(executor, app, world, device=None):
+def _prefetch(executor, app, world, device=None, into=None):
     """Stable load preceded by OS readahead hints on every payload in the
     app's dependency closure — useful when payloads are cold on networked
     or spinning storage. The closure walk reads only manifests (no table
@@ -232,4 +235,4 @@ def _prefetch(executor, app, world, device=None):
                 fadvise(fd, 0, 0, os.POSIX_FADV_WILLNEED)
             finally:
                 os.close(fd)
-    return executor._load_stable(app, world, device)
+    return executor._load_stable(app, world, device, into)

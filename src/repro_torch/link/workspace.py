@@ -486,13 +486,16 @@ class Workspace:
         strategy: str = "auto",
         world: Optional[World] = None,
         device=None,
+        into=None,
     ):
         """Load an application image; dispatches via the strategy registry.
 
         ``device`` builds the arena on that torch device (table-driven
-        strategies only; ``Executor.load``); ``None`` gives the host image."""
+        strategies only; ``Executor.load``); ``None`` gives the host image.
+        ``into`` (an earlier device image of the same slot layout) loads
+        into that image's arena, in place."""
         image = self.executor.load(
-            name, strategy=strategy, world=world, device=device
+            name, strategy=strategy, world=world, device=device, into=into
         )
         stats = getattr(image, "stats", None)
         if stats is not None:

@@ -48,7 +48,10 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    # the base made on the device (a fill, no upload): a CUDA graph capture
+    # refuses the synchronised copy a host scalar would take
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    freqs = torch.pow(base, exps)
     ang = positions[..., None].float() * freqs  # (..., half)
     return torch.sin(ang), torch.cos(ang)
 

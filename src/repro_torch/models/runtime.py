@@ -9,7 +9,10 @@ config's policy) on ``torch.utils.checkpoint``:
 * ``"none"``    — no remat: the body itself.
 
 The models apply it only while autograd records (``torch.is_grad_enabled``),
-so prefill and decode run the body as it is.
+so prefill and decode run the body as it is. No layer body draws a random
+number, so the recompute keeps no RNG state (``preserve_rng_state=False``):
+stashing the card's RNG state is what a CUDA graph capture of the training
+step (``train/program.py``) would refuse.
 
 ``unroll_scans()`` / ``scans_unrolled()`` keep the reference's switch for
 the dry-run's API (``launch/dryrun.py`` enters it around its cost probes,
@@ -64,7 +67,7 @@ def remat_wrap(fn, cfg):
     pol = getattr(cfg, "remat_policy", "nothing")
     if pol == "none":
         return fn
-    kw = {"use_reentrant": False}
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
     if pol == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                              _save_dots)

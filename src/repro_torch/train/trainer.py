@@ -11,10 +11,19 @@ Lifecycle (maps 1:1 onto the paper's Figure 4):
    builds one arena on the device with one ``paged_reloc_copy`` launch;
    the params and moments ARE views of that arena (the params made
    trainable leaves, nothing copied), and the step trains them in place.
+   The step comes from the compile cache (``ws.compile_cache``), keyed by
+   the program's identity only: arch, shape, mesh, microbatches, impl,
+   the device and the arena's slot layout (the compiled step owns
+   addresses, so the layout is part of what it is). The first start
+   compiles it (``train/program.py``: on the card a CUDA graph of the
+   step, captured once; on the CPU the same step run eagerly over the
+   same buffers); a restart looks the key up before its load, hits, and
+   loads its world INTO the program's arena (``ws.load(..., into=)``), so
+   the cached program trains the restart's state with no recompile.
    Optimizer symbols are WEAK references: they resolve to RelocType.INIT
    (zeros — the correct Adam init) before the first checkpoint and to
    DIRECT bindings afterwards, so restart-resume and cold-start are the
-   same code path.
+   same code path (and the same slot layout, hence the same key).
 3. checkpoints are management-time events (``ckpt.Checkpointer``, async):
    they publish new bundles and re-materialize, so recovery after a failure
    is an epoch-path (fast) startup from the newest world. The resume step
@@ -30,12 +39,13 @@ step is ``build_step``'s, as the reference's ``_startup`` builds it, and
 every leaf is a DTensor at the mesh's shardings:
 
 * on a mesh whose every axis has size 1, the arena's views are wrapped
-  (``DTensor.from_local``, replicated, no copy), so the step still trains
-  the arena in place;
+  (``DTensor.from_local`` at the step's own placements, no copy), so the
+  step trains the arena in place and places nothing itself;
 * on a larger mesh, every rank does a ``stable`` load of the whole state
   and keeps its shard (``distribute_tensor``), as the reference's
-  ``device_put`` does; a load that reads only a rank's pages is ROADMAP
-  item 13;
+  ``device_put`` does; at a restart the program's shards take the
+  load's values (``StepProgram.load_state``); a load that reads only a
+  rank's pages is ROADMAP item 13;
 * rank 0 alone opens the store at construction and does management (the
   first publish and each checkpoint's publish); every rank waits at a
   barrier before each load, and the others open the store then, on the
@@ -44,9 +54,13 @@ every leaf is a DTensor at the mesh's shardings:
 * a checkpoint gathers each leaf (``full_tensor``, a collective every rank
   joins) and rank 0 publishes it.
 
-Departures from the reference: no AOT executable cache (the step runs
-eagerly: ``compile_source`` reads ``"eager"``; caching a captured CUDA
-graph of the step is ROADMAP Queue B2 item 3); the workspace bakes no host arenas
+Departures from the reference: the compiled step is a captured CUDA
+graph, which has no serialized form, so the cache is memory-only (the
+reference's own fallback where executables cannot be serialized):
+``compile_source`` reads ``"compiled"`` at the first start and
+``"memory"`` at a restart, never ``"disk"``; each start also records
+``compiled_as`` (``"cuda_graph"`` or ``"eager"``), ``lower_s`` and
+``compile_s``; the workspace bakes no host arenas
 (``bake_arenas=False``: no start reads one); a RuntimeError that recurs past
 ``MAX_RESTARTS`` restarts is raised instead of retried for ever;
 ``TrainResult`` also carries each step's wall
@@ -56,6 +70,7 @@ its live state (``params``, ``opt_state``, ``image``) after ``run``.
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -64,12 +79,16 @@ import torch
 
 from repro_torch import models
 from repro_torch.ckpt import Checkpointer, bundle_from_params
-from repro_torch.core import ObjectKind, SymbolRef, make_object
-from repro_torch.data import Prefetcher, SyntheticTokens, to_device
+from repro_torch.core import ObjectKind, SymbolRef, cache_key, make_object
+from repro_torch.core.device_arena import slot_layout_digest
+from repro_torch.core.relocation import build_arena_layout
+from repro_torch.data import Prefetcher, SyntheticTokens, make_batch, to_device
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_step, make_train_fn
+from repro_torch.launch.steps import build_step, make_train_fn, place_state
 from repro_torch.link import Workspace
 from repro_torch.optim import OptConfig
+
+from .program import LoweredStep
 
 
 # a RuntimeError that recurs after this many restarts is raised
@@ -122,6 +141,7 @@ class Trainer:
         # on a mesh only rank 0 opens the store here; the others open it
         # at each start, after rank 0's commit (``_startup``)
         self.ws = self.registry = self.manager = self.executor = None
+        self.compile_cache = None
         if self.rank == 0:
             self._open()
         self.cfg = cfg
@@ -131,7 +151,7 @@ class Trainer:
         self.weights_name = f"weights:{cfg.name}"
         self.opt_name = f"opt:{cfg.name}"
         self.ckpt = Checkpointer(self.manager, self.weights_name, self.opt_name)
-        self.image = self.params = self.opt_state = None
+        self.image = self.params = self.opt_state = self.program = None
 
     # ------------------------------------------------------------- publish
     @property
@@ -148,6 +168,10 @@ class Trainer:
         self.registry = self.ws.registry
         self.manager = self.ws.manager
         self.executor = self.ws.executor
+        # a rank that reopens the store at each start keeps its compiled step
+        if self.compile_cache is None:
+            self.compile_cache = self.ws.compile_cache
+        self.ws.compile_cache = self.compile_cache
 
     def publish(self, params_np: Optional[dict] = None) -> None:
         """Initial management time: app + bundles, one transaction.
@@ -177,26 +201,32 @@ class Trainer:
             tx.publish(app)
 
     # --------------------------------------------------------------- start
-    def _startup(self):
-        """Epoch-path startup: one table-driven load into a device arena;
-        the state is views of it."""
-        t0 = time.perf_counter()
-        if self.mesh is not None:
-            torch.distributed.barrier()  # rank 0's publish is committed
-            if self.rank != 0:
-                self._open()             # the newest committed world
-        image = self.ws.load(self.app_name, strategy="stable", device=self.device)
-        params, m_state, v_state = {}, {}, {}
-        for n in models.param_specs(self.cfg):
-            t = image.tensors[n]
+    def _program_key(self) -> str:
+        """The compiled step's key: the reference's parts (arch, shape, mesh
+        shape, microbatches, impl), the device, and a digest of the arena's
+        slot layout, made from the app's refs before any load."""
+        app = self.ws.manager.world().resolve(self.app_name)
+        slots, _ = build_arena_layout(app.refs)
+        mesh = "none" if self.mesh is None else "x".join(map(str, self.mesh.shape))
+        return cache_key(self.cfg.name, self.shape.name, mesh,
+                         f"mb{self.tcfg.microbatches}", self.tcfg.impl,
+                         str(self.device), slot_layout_digest(slots))
+
+    def _state_of(self, image) -> tuple:
+        """(params, opt_state): views of the image's slots."""
+        names = list(models.param_specs(self.cfg))
+        params = {n: image.tensors[n] for n in names}
+        opt_state = {"m": {n: image.tensors[f"opt/m/{n}"] for n in names},
+                     "v": {n: image.tensors[f"opt/v/{n}"] for n in names},
+                     "step": image.tensors["opt/step"].view(())}
+        return params, opt_state
+
+    def _lower(self, image, step0: int):
+        """The step lowered over the image's state (module docstring)."""
+        params, opt_state = self._state_of(image)
+        for n, t in params.items():
             if t.is_inference():
                 raise RuntimeError(f"{n}: an inference-mode tensor cannot be trained")
-            params[n] = t
-            m_state[n] = image.tensors[f"opt/m/{n}"]
-            v_state[n] = image.tensors[f"opt/v/{n}"]
-        step_t = image.tensors["opt/step"].view(())
-        step0 = int(step_t)
-        opt_state = {"m": m_state, "v": v_state, "step": step_t}
         if self.mesh is None:
             params = {n: t.requires_grad_() for n, t in params.items()}
             step_fn = make_train_fn(
@@ -208,10 +238,40 @@ class Trainer:
                 self.cfg, self.shape, self.mesh, opt_cfg=self.tcfg.opt,
                 num_microbatches=self.tcfg.microbatches, impl=self.tcfg.impl,
             )
-            params, opt_state = self._place(params, opt_state, bundle.shardings)
+            params, opt_state = place_state(params, opt_state, bundle.shardings,
+                                            self.mesh)
             step_fn = bundle.jitted
+        batch = make_batch(
+            vocab_size=self.cfg.vocab_size, global_batch=self.shape.global_batch,
+            seq_len=self.shape.seq_len, step=step0, seed=self.tcfg.seed,
+            with_frames=self.cfg.d_model if self.cfg.is_encdec else 0,
+        )
+        sharded = self.mesh is not None and self.mesh.size() > 1
+        return LoweredStep(step_fn, params, opt_state, to_device(batch, self.device),
+                           device=self.device, image=None if sharded else image)
+
+    def _startup(self):
+        """Epoch-path startup: the compiled step looked up by program
+        identity, one table-driven load into a device arena (the program's
+        own on a hit), and the step compiled on a miss."""
+        t0 = time.perf_counter()
+        if self.mesh is not None:
+            torch.distributed.barrier()  # rank 0's publish is committed
+            if self.rank != 0:
+                self._open()             # the newest committed world
+        key = self._program_key()
+        program = self.compile_cache.get(key)
+        into = None if program is None else program.image
+        image = self.ws.load(self.app_name, strategy="stable", device=self.device,
+                             into=into)
+        step0 = int(image.tensors["opt/step"].view(()))
+        program, cstats = self.compile_cache.get_or_compile(
+            key, lambda: self._lower(image, step0))
+        if cstats.source == "memory" and program.image is None:
+            # each rank's shards: the program's take the load's values
+            program.load_state(*self._state_of(image))
         st = image.stats
-        if self.mesh is not None and self.mesh.size() > 1:
+        if program.image is None:
             image = None                 # each rank keeps copies of its shards
         startup = {
             "strategy": st.strategy,
@@ -219,35 +279,16 @@ class Trainer:
             "upload_s": st.upload_s,
             "kernel_s": st.kernel_s,
             "host_rows_s": st.host_rows_s,
-            "compile_source": "eager",
+            "compile_source": cstats.source,
+            "compiled_as": program.compiled_as,
+            "lower_s": cstats.lower_s,
+            "compile_s": cstats.compile_s,
             "total_s": time.perf_counter() - t0,
             "resume_step": step0,
         }
-        self.image, self.params, self.opt_state = image, params, opt_state
-        return params, opt_state, step_fn, step0, startup
-
-    def _place(self, params: dict, opt_state: dict, shardings: dict):
-        """The loaded state as DTensors at the step's shardings: views of
-        the arena on a mesh of one device, each rank's shards otherwise.
-        Params become leaves that require grad."""
-        from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
-
-        mesh = self.mesh
-        if mesh.size() == 1:
-            repl = [Replicate()] * mesh.ndim
-            wrap = lambda t, _: DTensor.from_local(t.detach(), mesh, repl,
-                                                    run_check=False)
-        else:
-            wrap = lambda t, pl: distribute_tensor(t.detach(), mesh, pl,
-                                                   src_data_rank=None)
-        p_sh, o_sh = shardings["params"], shardings["opt"]
-        params = {n: wrap(t, p_sh[n]).requires_grad_() for n, t in params.items()}
-        opt_state = {
-            "m": {n: wrap(t, o_sh["m"][n]) for n, t in opt_state["m"].items()},
-            "v": {n: wrap(t, o_sh["v"][n]) for n, t in opt_state["v"].items()},
-            "step": wrap(opt_state["step"], o_sh["step"]),
-        }
-        return params, opt_state
+        self.image, self.program = image, program
+        self.params, self.opt_state = program.params, program.opt_state
+        return program.params, program.opt_state, program, step0, startup
 
     def _checkpoint(self, step: int, params: dict, opt_state: dict) -> None:
         """Save a checkpoint: directly without a mesh; on one, every rank
@@ -275,9 +316,10 @@ class Trainer:
         wait_s = None                    # the checkpoint wait before a restart
 
         while not done:
-            # drop the last arena before loading the next one
+            # drop the last start's references (a cached program keeps its
+            # own state, into which the next start loads)
             params = opt_state = batch = metrics = None
-            self.image = self.params = self.opt_state = None
+            self.image = self.params = self.opt_state = self.program = None
             params, opt_state, step_fn, step, startup = self._startup()
             if wait_s is not None:
                 startup["ckpt_wait_s"] = wait_s
@@ -291,7 +333,7 @@ class Trainer:
                 with_frames=self.cfg.d_model if self.cfg.is_encdec else 0,
             )
             it = Prefetcher(data, depth=2,
-                            transform=lambda b: to_device(b, self.device))
+                            transform=functools.partial(to_device, device=self.device))
             try:
                 for batch in it:
                     if step >= tcfg.steps:
@@ -319,6 +361,8 @@ class Trainer:
                 self.ckpt.wait()   # recovery: epoch path from newest world
                 wait_s = time.perf_counter() - t0
                 continue
+            finally:
+                it.close()
         self.ckpt.wait()
         return TrainResult(
             losses=losses,

@@ -639,3 +639,78 @@ def test_local_mesh_steps_on_card_give_the_meshless_bits(cuda, arch):
         assert torch.equal(p1[n], t), n
     assert c1 == c0 and c1["rmsnorm"] > 0 and c1["rmsnorm_backward"] > 0
     assert c1["flash_attention"] == (0 if arch == "mamba2-370m" else cfg.num_layers)
+
+
+# --------------------------------------------- the compiled (captured) step
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b"])
+def test_captured_smoke_step_gives_the_eager_steps_on_card(cuda, arch):
+    """``LoweredStep(...).compile()`` on the card captures the training step
+    in a CUDA graph; 3 replays against 3 eager ``make_train_fn`` steps from
+    the same state on the same batches: each loss within 1e-5 relative (the
+    same bits unless a library kernel picks another algorithm under
+    capture) and the final params within 1e-5 of their largest magnitude;
+    compiling trains nothing; every replay credits the launches of one
+    eager step; the rmsnorm backward's ticket is 0 after the replays."""
+    from repro_torch import kernels, models
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train.program import LoweredStep, state_tensors
+
+    cfg = get_config(arch, smoke=True)
+    opt = OptConfig(peak_lr=1e-2, warmup_steps=1)
+    p0 = models.init_params(cfg, 0, cuda)
+    batches = [to_device(make_batch(vocab_size=cfg.vocab_size, global_batch=4, seq_len=16,
+                                    step=i), cuda) for i in range(3)]
+    pe, pc = ({n: t.clone().requires_grad_() for n, t in p0.items()} for _ in range(2))
+    oe, oc = init_opt_state(pe), init_opt_state(pc)
+    step = make_train_fn(cfg, opt)
+    kernels.zero_launch_counts()
+    eager = []
+    for b in batches:
+        eager.append(float(step(pe, oe, b)[2]["loss"]))
+    per_step = {k: v // 3 for k, v in kernels.counter_snapshot().items()}
+    before = [t.clone() for t in state_tensors(pc, oc)]
+    program = LoweredStep(step, pc, oc, batches[0], device=cuda).compile()
+    assert program.compiled_as == "cuda_graph" and program.stats["pool_bytes"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(before, state_tensors(pc, oc)))
+    kernels.zero_launch_counts()
+    got = [float(program(pc, oc, b)[2]["loss"]) for b in batches]
+    assert program.replays == 3 and kernels.counter_snapshot() == {
+        k: 3 * v for k, v in per_step.items()}
+    for g, e in zip(got, eager):
+        assert abs(g - e) <= 1e-5 * abs(e), (got, eager)
+    for n, t in pe.items():
+        scale = max(t.detach().float().abs().max().item(), 1e-30)
+        diff = (pc[n].detach().float() - t.detach().float()).abs().max().item()
+        assert diff <= 1e-5 * scale, n
+    assert int(oc["step"]) == 3
+    if program.scratch is not None:
+        assert int(program.scratch[0].item()) == 0
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_a_value_back_cannot_be_captured(cuda):
+    """A step that reads its loss back to the host (``.item()``) cannot be
+    captured: ``compile()`` raises ``CaptureError`` (nothing runs the step
+    eagerly instead) and leaves the launch counters as they were."""
+    from repro_torch import kernels
+    from repro_torch.train.program import CaptureError, LoweredStep
+
+    def step(params, opt_state, batch):
+        loss = (params["w"] * batch["x"]).sum()
+        if loss.item() > 0:                  # a host read inside the step
+            loss = loss * 2
+        return params, opt_state, {"loss": loss.detach()}
+
+    params = {"w": torch.ones(8, device=cuda, requires_grad=True)}
+    opt = {"m": {}, "v": {}, "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    before = kernels.counter_snapshot()
+    lowered = LoweredStep(step, params, opt, {"x": torch.ones(8, device=cuda)}, device=cuda)
+    with pytest.raises(CaptureError, match="cannot be captured"):
+        lowered.compile()
+    assert kernels.counter_snapshot() == before
+    torch.cuda.synchronize()                 # the card is usable after the refusal
+    assert float((params["w"] * 2).sum()) == 16.0

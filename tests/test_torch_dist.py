@@ -279,6 +279,10 @@ def test_trainer_on_a_1x2_mesh_matches_the_reference_trainer(tmp_path, fail_at):
     assert (got["steps_done"], got["restarts"], got["checkpoint_saves"]) == (
         want.steps_done, want.restarts, want.checkpoint_saves)
     assert got["resume_steps"] == [s["resume_step"] for s in want.startup_stats]
+    # the step compiled once per program identity; a restart hits the cache
+    # and loads into the program's own shards
+    assert got["compile_sources"] == [s["compile_source"] for s in want.startup_stats]
+    assert got["compiled_as"] == ["eager"] and got["same_state"]
     assert len(got["losses"]) == len(want.losses) == 6 + (fail_at > 0)
     np.testing.assert_allclose(got["losses"], want.losses, rtol=LOSS_TOL)
 

@@ -201,6 +201,16 @@ def test_prefetcher_preserves_order_and_transforms_on_the_consumer():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_prefetcher_close_ends_the_producer_of_an_endless_stream():
+    fetched = Prefetcher(SyntheticTokens(vocab_size=50, global_batch=2, seq_len=8),
+                         depth=1)
+    next(fetched)
+    fetched._thread.join(timeout=0.2)
+    assert fetched._thread.is_alive()        # blocked on the full queue
+    fetched.close()
+    assert not fetched._thread.is_alive()
+
+
 def test_to_device_gives_contiguous_tensors_of_the_batch():
     b = make_batch(vocab_size=100, global_batch=4, seq_len=8, step=0, with_frames=4)
     t = to_device(b, "cpu")

@@ -280,6 +280,10 @@ def test_trainer_matches_reference_trainer(tmp_path, fail_at):
     np.testing.assert_allclose(got.losses, want.losses, rtol=STATE_TOL)
     assert [s["resume_step"] for s in got.startup_stats] == [
         s["resume_step"] for s in want.startup_stats]
+    # the step compiled once per program identity: the reference's sources
+    assert [s["compile_source"] for s in got.startup_stats] == [
+        s["compile_source"] for s in want.startup_stats]
+    assert {s["compiled_as"] for s in got.startup_stats} == {"eager"}
 
 
 def test_train_completes_and_checkpoints(tmp_path):
@@ -292,7 +296,8 @@ def test_train_completes_and_checkpoints(tmp_path):
     assert res.steps_done == 6 and res.checkpoint_saves == 2 and res.restarts == 0
     assert all(np.isfinite(res.losses)) and len(res.step_s) == 6
     st = res.startup_stats[0]
-    assert st["strategy"] == "stable" and st["compile_source"] == "eager"
+    assert st["strategy"] == "stable" and st["compile_source"] == "compiled"
+    assert st["compiled_as"] == "eager"      # the CPU runs the program eagerly
     # the trained state is the device arena's own bytes: views, no copy
     base = tr.image.arena.untyped_storage().data_ptr()
     for n, t in tr.params.items():

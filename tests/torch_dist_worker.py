@@ -166,13 +166,25 @@ def case_trainer(inp, arch, spec, registry, fail_at):
     B, S = inp["shape"]
     tcfg = TrainConfig(steps=inp["steps"], checkpoint_every=inp["checkpoint_every"],
                        fail_at_step=int(fail_at), opt=_opt(inp["opt"]))
-    tr = Trainer(registry, cfg, ShapeConfig("t", S, B, "train"), tcfg, device="cpu",
-                 mesh=mesh_from_spec(spec, "cpu"))
+    class Recording(Trainer):
+        """Each start's local state addresses (the compiled step's shards)."""
+
+        def _startup(self):
+            out = super()._startup()
+            self.ptrs.append([p.to_local().data_ptr() for p in out[0].values()])
+            return out
+
+    tr = Recording(registry, cfg, ShapeConfig("t", S, B, "train"), tcfg, device="cpu",
+                   mesh=mesh_from_spec(spec, "cpu"))
+    tr.ptrs = []
     tr.publish(inp["params"])
     res = tr.run()
     return {"losses": res.losses, "steps_done": res.steps_done, "restarts": res.restarts,
             "checkpoint_saves": res.checkpoint_saves,
-            "resume_steps": [s["resume_step"] for s in res.startup_stats]}
+            "resume_steps": [s["resume_step"] for s in res.startup_stats],
+            "compile_sources": [s["compile_source"] for s in res.startup_stats],
+            "compiled_as": sorted({s["compiled_as"] for s in res.startup_stats}),
+            "same_state": all(p == tr.ptrs[0] for p in tr.ptrs)}
 
 
 def case_trainer_local(inp, arch, registry):
