@@ -27,7 +27,10 @@ runs when a load names a device:
     (weak symbols, all INIT) down and up again;
 (e) bind KERNEL symbols on the host;
 (f) free the blob and synchronise, so ``LoadStats`` covers the device
-    work: ``upload_s``, ``kernel_s`` and ``host_rows_s`` split ``io_s``;
+    work: ``upload_s``, ``kernel_s`` and ``host_rows_s`` split ``io_s``,
+    each the length of its span (``link.upload``, ``link.page_copy``,
+    ``link.host_rows``; ``repro_torch.obs``), and ``read_s`` and
+    ``stage_wait_s`` split the host's part of ``upload_s``;
 (g) return a ``LoadedImage`` whose ``arena`` is the device bytes
     (``uint8``, ``arena_size`` long) and whose ``tensors[name]`` are views
     of it in the slot's own torch dtype (bfloat16 included).
@@ -47,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device, torch_dtype
 
 from .objects import PAGE_BYTES, RelocType, align_up
@@ -61,10 +65,13 @@ def _sync(dev: torch.device) -> None:
 
 
 def _upload_blob(executor, table: RelocationTable, src: np.ndarray,
-                 dev: torch.device) -> torch.Tensor:
+                 dev: torch.device, stats) -> torch.Tensor:
     """The source blob on ``dev``: every provider that ``src`` reads, its
     payload at its ``blob_layout`` pages (tail of a partial page zeroed).
-    Pages of providers no entry reads are left unwritten."""
+    Pages of providers no entry reads are left unwritten. Each host copy
+    out of a payload's mapping is a ``link.payload_read`` span (summed in
+    ``stats.read_s``), each wait for a staging buffer's copy to drain a
+    ``link.stage_wait`` (``stats.stage_wait_s``)."""
     from repro_torch.kernels.paged_reloc_copy import PAGE_SHAPE
 
     layout, n_pages = blob_layout(table)
@@ -83,7 +90,9 @@ def _upload_blob(executor, table: RelocationTable, src: np.ndarray,
         host = flat.numpy()
         for mm, off, size in jobs:
             n = min(mm.size, size)
-            host[off : off + n] = mm[:n]
+            with obs.span("link.payload_read", bytes=n) as read:
+                host[off : off + n] = mm[:n]
+            stats.read_s += read.dur
             host[off + n : off + size] = 0
         return blob
     # two pinned buffers: the host fills one while the other's copy runs
@@ -99,8 +108,12 @@ def _upload_blob(executor, table: RelocationTable, src: np.ndarray,
             m = min(STAGE_BYTES, n - a)
             i = k % 2
             if done[i] is not None:
-                done[i].synchronize()
-            stages[i].numpy()[:m] = mm[a : a + m]
+                with obs.span("link.stage_wait") as wait:
+                    done[i].synchronize()
+                stats.stage_wait_s += wait.dur
+            with obs.span("link.payload_read", bytes=m) as read:
+                stages[i].numpy()[:m] = mm[a : a + m]
+            stats.read_s += read.dur
             flat[off + a : off + a + m].copy_(stages[i][:m], non_blocking=True)
             done[i] = torch.cuda.Event()
             done[i].record()
@@ -178,7 +191,7 @@ def apply_table_on_device(executor, app, table: RelocationTable, stats, device,
     from .executor import LoadedImage, paged_payload_bytes
 
     dev = resolve_device(device)
-    t0 = time.perf_counter()
+    t0 = time.monotonic()
     if table._pt_src is not None and "host_rows" in table.meta:   # (a)
         src, dst = table._pt_src, table._pt_dst
         host_rows = table.meta["host_rows"]
@@ -186,32 +199,32 @@ def apply_table_on_device(executor, app, table: RelocationTable, stats, device,
         pt = compile_page_table(table)
         src, dst, host_rows = pt.src_page, pt.dst_page, pt.host_rows.tolist()
 
-    t1 = time.perf_counter()
-    blob = _upload_blob(executor, table, src, dev)                # (b)
-    _sync(dev)
-    stats.upload_s = time.perf_counter() - t1
-    t1 += stats.upload_s
+    with obs.span("link.upload") as upload:
+        blob = _upload_blob(executor, table, src, dev, stats)     # (b)
+        _sync(dev)
+    stats.upload_s = upload.dur
 
-    arena_pages = align_up(table.arena_size, PAGE_BYTES) // PAGE_BYTES
-    if into is None:
-        arena = torch.zeros((arena_pages,) + PAGE_SHAPE, dtype=torch.int32,
-                            device=dev)
-    else:
-        arena = _target_arena(into, table, dev, arena_pages)
-    paged_reloc_copy(blob, arena, src, dst)                       # (c)
-    _sync(dev)
-    t2 = time.perf_counter()
-    stats.kernel_s = t2 - t1
+    with obs.span("link.page_copy", pages=len(src)) as copy:
+        arena_pages = align_up(table.arena_size, PAGE_BYTES) // PAGE_BYTES
+        if into is None:
+            arena = torch.zeros((arena_pages,) + PAGE_SHAPE, dtype=torch.int32,
+                                device=dev)
+        else:
+            arena = _target_arena(into, table, dev, arena_pages)
+        paged_reloc_copy(blob, arena, src, dst)                   # (c)
+        _sync(dev)
+    stats.kernel_s = copy.dur
     del blob
 
-    flat = arena.view(-1).view(torch.uint8)
-    kernels: dict[str, str] = {}
-    host_rows = rows_to_apply(executor, table, host_rows)         # (d)
-    if host_rows:
-        _apply_host_rows(executor, table, flat, kernels, host_rows)
-    executor._bind_kernels(table, kernels)                        # (e)
-    _sync(dev)                                                    # (f)
-    stats.host_rows_s = time.perf_counter() - t2
+    with obs.span("link.host_rows") as rows:
+        flat = arena.view(-1).view(torch.uint8)
+        kernels: dict[str, str] = {}
+        host_rows = rows_to_apply(executor, table, host_rows)     # (d)
+        if host_rows:
+            _apply_host_rows(executor, table, flat, kernels, host_rows)
+        executor._bind_kernels(table, kernels)                    # (e)
+        _sync(dev)                                                # (f)
+    stats.host_rows_s = rows.dur
 
     tensors = {}                                                  # (g)
     for name, s in table.slots().items():
@@ -220,7 +233,7 @@ def apply_table_on_device(executor, app, table: RelocationTable, stats, device,
             raise ValueError(f"slot {name!r} at offset {s.offset} is not "
                              f"aligned for {s.dtype}")
         tensors[name] = flat[s.offset : s.offset + s.nbytes].view(dt).view(s.shape)
-    stats.io_s = time.perf_counter() - t0
+    stats.io_s = time.monotonic() - t0
     stats.relocations = len(table.rows)
     stats.bytes_loaded = paged_payload_bytes(table)
     return LoadedImage(

@@ -68,6 +68,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import obs
+
 from . import shm_arena
 from .epoch_cache import ArenaEntry, EpochCache, process_cache
 from .errors import StaleTableError, UnknownObjectError
@@ -124,6 +126,10 @@ class LoadStats:
     upload_s: float = 0.0
     kernel_s: float = 0.0
     host_rows_s: float = 0.0
+    # inside upload_s: the host's copies out of the payload mappings, and
+    # its waits for a staging buffer's copy to the device to drain
+    read_s: float = 0.0
+    stage_wait_s: float = 0.0
 
     @property
     def startup_s(self) -> float:
@@ -500,7 +506,8 @@ class Executor:
         rest raise ``ValueError``. ``None`` keeps the numpy host image.
         ``into`` (an earlier device ``LoadedImage`` of the same slot layout)
         builds the arena in that image's arena instead of a new one, on its
-        device (``core/device_arena.py``).
+        device (``core/device_arena.py``). The load is a ``link.load`` span
+        (``repro_torch.obs``).
         """
         # Imported lazily: core stays importable without the link facade,
         # and the registry module itself imports core.
@@ -516,11 +523,12 @@ class Executor:
                 f"load strategy {strategy!r} builds no device arena "
                 f"({DEVICE_TODO}); load it with device=None"
             )
-        if device is None:
-            return fn(self, app, world)
-        if into is None:
-            return fn(self, app, world, device=device)
-        return fn(self, app, world, device=device, into=into)
+        with obs.span("link.load", app=app_name, strategy=strategy):
+            if device is None:
+                return fn(self, app, world)
+            if into is None:
+                return fn(self, app, world, device=device)
+            return fn(self, app, world, device=device, into=into)
 
     def load_all(
         self,
@@ -559,23 +567,23 @@ class Executor:
         self, app: StoreObject, world: World, device=None, into=None
     ) -> LoadedImage:
         stats = LoadStats(strategy="stable")
-        t0 = time.perf_counter()
-        key = self.closure_key(app, world)
-        path = self.registry.table_path(app.content_hash, key)
-        if not path.exists():
-            # pre-closure-hash stores keyed tables by the world hash; honour
-            # them until the next management cycle re-materializes
-            legacy = self.registry.table_path(app.content_hash, world.world_hash)
-            if legacy.exists():
-                path, key = legacy, world.world_hash
-            else:
-                raise StaleTableError(
-                    f"no materialized table for {app.name} under closure "
-                    f"{key[:12]}; run begin_mgmt/end_mgmt"
-                )
-        table = RelocationTable.load(path)
-        table.check_fresh(key, app.content_hash)
-        stats.table_load_s = time.perf_counter() - t0
+        with obs.span("link.table_load") as span:
+            key = self.closure_key(app, world)
+            path = self.registry.table_path(app.content_hash, key)
+            if not path.exists():
+                # pre-closure-hash stores keyed tables by the world hash;
+                # honour them until the next management cycle re-materializes
+                legacy = self.registry.table_path(app.content_hash, world.world_hash)
+                if legacy.exists():
+                    path, key = legacy, world.world_hash
+                else:
+                    raise StaleTableError(
+                        f"no materialized table for {app.name} under closure "
+                        f"{key[:12]}; run begin_mgmt/end_mgmt"
+                    )
+            table = RelocationTable.load(path)
+            table.check_fresh(key, app.content_hash)
+        stats.table_load_s = span.dur
         return self._apply_table(app, table, stats, device, into)
 
     def _build_arena_entry(self, app: StoreObject, key: str) -> ArenaEntry:

@@ -82,6 +82,8 @@ class LinkReport:
                 "resolve_s": self.stats.resolve_s,
                 "table_load_s": self.stats.table_load_s,
                 "io_s": self.stats.io_s,
+                "read_s": self.stats.read_s,
+                "stage_wait_s": self.stats.stage_wait_s,
                 "index_build_s": self.stats.index_build_s,
                 "relocations": self.stats.relocations,
                 "probes": self.stats.probes,

@@ -31,7 +31,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch import convert, models
+from repro_torch import convert, models, obs
 from repro_torch.core.errors import AdoptDeadlineError
 from repro_torch.device import resolve_device
 from repro_torch.link import strategy_takes_device
@@ -150,11 +150,13 @@ class ServeEngine:
         ``device`` when the strategy builds device arenas, else on the host
         and then copied there — and returns the wired engine;
         ``engine.load_stats`` carries the load's ``LoadStats``."""
-        dev = resolve_device(device)
-        image = cls._load(ws, app_name, strategy, dev)
-        params = cls._lift_params(cfg, image, dev)
-        engine = cls(cfg, params, impl=impl, cache_len=cache_len, device=dev)
-        engine.load_stats = image.stats
+        with obs.span("engine.start", app=app_name, strategy=strategy):
+            dev = resolve_device(device)
+            image = cls._load(ws, app_name, strategy, dev)
+            with obs.span("engine.lift"):
+                params = cls._lift_params(cfg, image, dev)
+            engine = cls(cfg, params, impl=impl, cache_len=cache_len, device=dev)
+            engine.load_stats = image.stats
         return engine
 
     @staticmethod
@@ -316,34 +318,38 @@ class ServeEngine:
         ServeStats). Tokens stay on the device until the last step. A
         token id outside the vocabulary raises ``ValueError`` before any
         launch. An encoder-decoder encodes the stubbed frames
-        (``scheduler.stub_frames``), one per prompt position."""
-        cfg = self.cfg
-        check_token_ids(prompts, cfg.vocab_size, "prompts")
-        stats = ServeStats()
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
-        batch = {"tokens": tokens}
-        if cfg.is_encdec:
-            batch["frames"] = stub_frames(cfg, *tokens.shape, self.device)
-        self._sync()
-        t0 = time.perf_counter()
-        logits, cache = models.prefill(
-            cfg, self.params, batch, impl=self.impl,
-            cache_len=self.cache_len or None,
-        )
-        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-        self._sync()
-        stats.prefill_s = time.perf_counter() - t0
+        (``scheduler.stub_frames``), one per prompt position. Spans:
+        ``engine.generate``, holding ``engine.prefill.launch``,
+        ``engine.prefill.sync`` and ``engine.decode``."""
+        with obs.span("engine.generate", batch=len(prompts), new=max_new_tokens):
+            cfg = self.cfg
+            check_token_ids(prompts, cfg.vocab_size, "prompts")
+            stats = ServeStats()
+            tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
+            batch = {"tokens": tokens}
+            if cfg.is_encdec:
+                batch["frames"] = stub_frames(cfg, *tokens.shape, self.device)
+            self._sync()
+            with obs.span("engine.prefill.launch") as launch:
+                logits, cache = models.prefill(
+                    cfg, self.params, batch, impl=self.impl,
+                    cache_len=self.cache_len or None,
+                )
+                tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            with obs.span("engine.prefill.sync") as sync:
+                self._sync()
+            stats.prefill_s = sync.t1 - launch.t0
 
-        out = [tok]
-        t1 = time.perf_counter()
-        for _ in range(max_new_tokens - 1):
-            logits, cache = models.decode_step(cfg, self.params, cache, tok)
-            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-            out.append(tok)
-        self._sync()
-        stats.decode_s = time.perf_counter() - t1
-        stats.tokens_out = tokens.shape[0] * max_new_tokens
-        return torch.cat(out, dim=1).cpu().numpy(), stats
+            out = [tok]
+            with obs.span("engine.decode") as decode:
+                for _ in range(max_new_tokens - 1):
+                    logits, cache = models.decode_step(cfg, self.params, cache, tok)
+                    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+                    out.append(tok)
+                self._sync()
+            stats.decode_s = decode.dur
+            stats.tokens_out = tokens.shape[0] * max_new_tokens
+            return torch.cat(out, dim=1).cpu().numpy(), stats
 
     def serve_loop(
         self,

@@ -48,7 +48,7 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from repro_torch import models
+from repro_torch import models, obs
 from repro_torch.core.errors import EpochAdoptError
 from repro_torch.device import torch_dtype
 from repro_torch.models.common import host_ints
@@ -349,7 +349,21 @@ class SlotScheduler:
         row into a free slot. Returns the slot index. A prompt holding a
         token id outside the vocabulary, or longer than the engine's
         ``cache_len`` (a cache with a sequence axis), raises ``ValueError``
-        first."""
+        first. Spans: ``sched.admit``, with ``sched.admit.launch`` (the
+        host's issue) and, when streaming, ``sched.admit.sync`` (the wait
+        for the first token)."""
+        with obs.span("sched.admit", rid=req.rid, prompt=len(req.prompt)):
+            with obs.span("sched.admit.launch"):
+                idx, tok0 = self._admit(req, now)
+            if self.stream:
+                # streaming pays one scalar sync per ADMIT (not per step) so
+                # the prefill token can ride the first PARTIAL frame
+                with obs.span("sched.admit.sync"):
+                    self.slot_meta[idx].first_token = int(tok0[0])
+        return idx
+
+    def _admit(self, req: Request, now: float):
+        """Issue ``req``'s prefill and its row's writes: (slot, tok0)."""
         free = self.free_slots
         if not free:
             raise RuntimeError("admit called with no free slot")
@@ -405,13 +419,8 @@ class SlotScheduler:
         toks[idx, 0] = tok0[0]
         keys[idx] = row_key
         self.active[idx] = True
-        meta = _Slot(request=req, admitted_ts=now, steps_done=1)
-        if self.stream:
-            # streaming pays one scalar sync per ADMIT (not per step) so
-            # the prefill token can ride the first PARTIAL frame
-            meta.first_token = int(tok0[0])
-        self.slot_meta[idx] = meta
-        return idx
+        self.slot_meta[idx] = _Slot(request=req, admitted_ts=now, steps_done=1)
+        return idx, tok0
 
     @torch.inference_mode()
     def step(self) -> list[TokenDelta] | None:
@@ -420,7 +429,32 @@ class SlotScheduler:
 
         Returns the per-slot token deltas when streaming (one host sync of
         the (slots,) next-token feed), else None (no sync; tokens stay on
-        the device until ``pop_finished``)."""
+        the device until ``pop_finished``). Spans: ``sched.step``, with
+        ``sched.step.launch`` (the host's issue) and, when streaming,
+        ``sched.step.sync`` (the wait for the feed)."""
+        with obs.span("sched.step", active=self.n_active, slots=self.slots):
+            with obs.span("sched.step.launch"):
+                toks = self._launch_step()
+            deltas: list[TokenDelta] | None = None
+            if self.stream:
+                with obs.span("sched.step.sync"):
+                    feed = toks.cpu().numpy()        # (slots, 1): just-sampled
+                deltas = [
+                    TokenDelta(
+                        rid=meta.request.rid,
+                        seq=meta.steps_done,     # tokens already out = position
+                        tokens=(int(feed[i, 0]),),
+                    )
+                    for i, meta in enumerate(self.slot_meta)
+                    if meta is not None
+                ]
+            for meta in self.slot_meta:
+                if meta is not None:
+                    meta.steps_done += 1
+        return deltas
+
+    def _launch_step(self) -> torch.Tensor:
+        """Issue one batched decode step; returns the (slots, 1) feed."""
         eng = self.engine
         cache, toks, out_buf, steps, keys = self._state
         active = host_ints(self.active.tolist(), eng.device).bool()
@@ -433,22 +467,7 @@ class SlotScheduler:
         steps += active
         toks = nxt[:, None]
         self._state = (cache, toks, out_buf, steps, keys)
-        deltas: list[TokenDelta] | None = None
-        if self.stream:
-            feed = toks.cpu().numpy()        # (slots, 1): just-sampled
-            deltas = [
-                TokenDelta(
-                    rid=meta.request.rid,
-                    seq=meta.steps_done,     # tokens already out = position
-                    tokens=(int(feed[i, 0]),),
-                )
-                for i, meta in enumerate(self.slot_meta)
-                if meta is not None
-            ]
-        for meta in self.slot_meta:
-            if meta is not None:
-                meta.steps_done += 1
-        return deltas
+        return toks
 
     def pop_finished(self, now: float) -> list[Completion]:
         """Retire every slot whose host-mirrored step count hit its target.
@@ -555,6 +574,13 @@ def run_serve_loop(
 
     **Sampling**: ``temperature``/``top_k``/``sampling_seed``; see
     ``SlotScheduler``. All timestamps are ``time.monotonic()``.
+
+    **Spans** (``repro_torch.obs``): ``serve.queued`` per request, from its
+    acceptance to the start of its admission; ``serve.poll`` (accepting and
+    the deadline sweep, left out on an idle turn), ``serve.deltas`` (an
+    admission's or a step's ``on_delta`` calls) and ``serve.retire`` (``pop_finished`` and
+    the ``sink`` calls) per turn; ``sched.admit`` and ``sched.step`` come
+    from ``SlotScheduler``.
     """
     report = ServeLoopReport()
     sched = SlotScheduler(
@@ -570,9 +596,10 @@ def run_serve_loop(
     stall_t0 = 0.0
     t0 = time.monotonic()
 
-    def _pick_next(now: float) -> Request:
+    def _pick_next(now: float) -> tuple[Request, float]:
         """Priority-then-FIFO with aging: highest effective class wins,
-        oldest arrival breaks ties within a class."""
+        oldest arrival breaks ties within a class. Returns the request and
+        when it was accepted."""
         best = None
         for entry in queue:
             req, arrival, accepted = entry
@@ -589,7 +616,7 @@ def run_serve_loop(
             report.priority_aged += 1
         by = report.admitted_by_priority
         by[req.priority] = by.get(req.priority, 0) + 1
-        return req
+        return req, entry[2]
 
     while True:
         # 0) rollover handshake: notice a landed commit (throttled), flip
@@ -618,60 +645,72 @@ def run_serve_loop(
             report.rollover_stall_s += time.monotonic() - stall_t0
             pending_epoch = None
 
-        # 1) accept traffic while there is queue room (rollover included)
-        while not draining and len(queue) < max_queue:
-            got = source()
-            if got is None:
-                break
-            if got is STOP:
-                draining = True
-                break
-            now = time.monotonic()
-            if got.deadline_s > 0 and got.enqueued_ts is None:
-                # no dispatcher clock: the deadline counts from acceptance
-                got = replace(got, enqueued_ts=now)
-            queue.append((got, arrivals, now))
-            arrivals += 1
-        report.peak_queue = max(report.peak_queue, len(queue))
+        # 1) accept traffic while there is queue room (rollover included);
+        # a turn that accepts and expires nothing with no slot active is
+        # left out of the record, so an idle loop does not flood it
+        poll = obs.span("serve.poll")
+        with poll:
+            accepted, expired = arrivals, report.deadline_expired
+            while not draining and len(queue) < max_queue:
+                got = source()
+                if got is None:
+                    break
+                if got is STOP:
+                    draining = True
+                    break
+                now = time.monotonic()
+                if got.deadline_s > 0 and got.enqueued_ts is None:
+                    # no dispatcher clock: the deadline counts from acceptance
+                    got = replace(got, enqueued_ts=now)
+                queue.append((got, arrivals, now))
+                arrivals += 1
+            report.peak_queue = max(report.peak_queue, len(queue))
 
-        # 1b) deadline sweep: queued requests first (they expire without a
-        # prefill), then in-flight slots (freed with their partial row)
-        now = time.monotonic()
-        if queue:
-            still = []
-            for entry in queue:
-                req = entry[0]
-                if req.expired(now):
-                    report.deadline_expired += 1
-                    sink(
-                        Completion(
-                            rid=req.rid,
-                            tokens=np.zeros((0,), np.int32),
-                            admitted_ts=now,
-                            finished_ts=now,
-                            enqueued_ts=req.enqueued_ts,
-                            status="deadline",
+            # 1b) deadline sweep: queued requests first (they expire without
+            # a prefill), then in-flight slots (freed with their partial row)
+            now = time.monotonic()
+            if queue:
+                still = []
+                for entry in queue:
+                    req = entry[0]
+                    if req.expired(now):
+                        report.deadline_expired += 1
+                        sink(
+                            Completion(
+                                rid=req.rid,
+                                tokens=np.zeros((0,), np.int32),
+                                admitted_ts=now,
+                                finished_ts=now,
+                                enqueued_ts=req.enqueued_ts,
+                                status="deadline",
+                            )
                         )
-                    )
-                else:
-                    still.append(entry)
-            queue = still
-        for comp in sched.expire(now):
-            report.deadline_expired += 1
-            sink(comp)
+                    else:
+                        still.append(entry)
+                queue = still
+            for comp in sched.expire(now):
+                report.deadline_expired += 1
+                sink(comp)
+            accepted = arrivals - accepted
+            expired = report.deadline_expired - expired
+            poll.attrs.update(accepted=accepted, expired=expired)
+            poll.keep = bool(accepted or expired or sched.n_active)
 
         # 2) admit into free slots; held back while a flip waits
         now = time.monotonic()
         while pending_epoch is None and queue and sched.free_slots:
-            req = _pick_next(now)
+            req, accepted_ts = _pick_next(now)
+            obs.interval("serve.queued", accepted_ts, time.monotonic(), rid=req.rid,
+                         due=req.enqueued_ts)
             idx = sched.admit(req, now)
             report.admitted += 1
             if on_delta is not None:
                 meta = sched.slot_meta[idx]
-                on_delta(
-                    TokenDelta(rid=req.rid, seq=0,
-                               tokens=(meta.first_token,))
-                )
+                with obs.span("serve.deltas"):
+                    on_delta(
+                        TokenDelta(rid=req.rid, seq=0,
+                                   tokens=(meta.first_token,))
+                    )
                 report.deltas_out += 1
         report.peak_active = max(report.peak_active, sched.n_active)
 
@@ -681,15 +720,19 @@ def run_serve_loop(
             deltas = sched.step()
             report.steps += 1
             if on_delta is not None and deltas:
-                for d in deltas:
-                    on_delta(d)
+                with obs.span("serve.deltas"):
+                    for d in deltas:
+                        on_delta(d)
                 report.deltas_out += len(deltas)
 
             # 4) retire finished requests (one host sync each)
-            for comp in sched.pop_finished(time.monotonic()):
-                report.completed += 1
-                report.tokens_out += comp.tokens.shape[0]
-                sink(comp)
+            with obs.span("serve.retire") as retire:
+                done = sched.pop_finished(time.monotonic())
+                retire.attrs["finished"] = len(done)
+                for comp in done:
+                    report.completed += 1
+                    report.tokens_out += comp.tokens.shape[0]
+                    sink(comp)
         elif queue:
             continue
         elif draining:
