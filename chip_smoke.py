@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero; no phase is skipped or caught):
 
-1. build: compile the port's three CUDA C++ sources with nvcc (one process
+1. build: compile the port's four CUDA C++ sources with nvcc (one process
    per source, started together), print ``-Xptxas -v``'s registers and
-   spills for the flash-attention and rmsnorm kernels (rmsnorm's forward
-   and each route of its backward apart), and check that the
+   spills for the flash-attention, rmsnorm and decode-attention kernels
+   (rmsnorm's forward and each route of its backward apart), and check that the
    flash library's SASS holds tensor-core ``HGMMA`` instructions (with the
    toolkit's ``cuobjdump``; "not checked" where there is none). Set-up then
    publishes gemma3-1b at its published size (26 layers, bf16, random
@@ -220,6 +220,16 @@ Phases (any failure exits non-zero; no phase is skipped or caught):
    ``vignettes_torch.py`` with ``--device cuda``, as subprocesses started
    together: each must exit 0 within EXAMPLE_TIMEOUT_S and print its
    closing lines (all ten vignettes). ``--phases 13`` runs phase 3 too.
+14. decode attention, run first: the kernel against its plain version at
+   olmoe-1b-7b's chat shape (64 slots of 2,560 rows, 16 KV heads of 128)
+   and gemma3-1b's MQA at hd 256 (4 rows of 1,056), bf16, at ragged
+   per-row positions (0, 1, S - 1, past S, the rest uniform): its error
+   against the plain version in float32 no larger than the bf16 plain
+   version's; timed beside its bound by bytes, the plain version and
+   ``F.scaled_dot_product_attention``, with the wrapper's host time a
+   call. Every serving path above also counts its launches exactly: one a
+   decode step for each attention layer (26 gemma3-1b, 8 olmoe-1b-7b at 8
+   layers, 48 seamless (self and cross), 0 mamba2, 5 zamba2 at 27 layers).
 
 ``--phases`` runs only the listed phases (the build always runs) and prints
 no result lines: it is for development on the card.
@@ -290,6 +300,7 @@ DSCALE_TOL = 1e-4             # of the float32 plain sum's largest value
 ARCH, BATCH, PROMPT, NEW = "gemma3-1b", 4, 1024, 32
 FLASH_PER_PREFILL = 26
 RMS_PER_STEP = 105            # 4 per layer (attn, q, k, mlp) + final norm
+DECODE_PER_STEP = 26          # decode_attention launches a decode step: one a layer
 # serving across an epoch (phase 5)
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_CACHE = 12, 4, 1056
 SERVE_LENS = (256, 512, 768, 1024)
@@ -311,7 +322,9 @@ PAGED_CASES = [(4, 2), (64, 64), (128, 37)]
 MOE_ARCH, ENCDEC_ARCH = "olmoe-1b-7b", "seamless-m4t-large-v2"
 MOE_LAYERS = 8                # of 16
 MOE_FLASH, MOE_RMS = 8, 33    # per prefill; rmsnorm 4 a layer + final norm
+MOE_DECODE = 8                # decode_attention launches a step: one a layer
 ENCDEC_FLASH, ENCDEC_CROSS = 72, 24   # 24 encoder + 24 decoder self, 24 cross
+ENCDEC_DECODE = 48            # a step: 24 decoder layers' self and cross attention
 MIX_REQUESTS = 8              # serve_loop requests of SERVE_LENS tokens
 # the SSM and hybrid families at their published widths (phases 9 and 10):
 # launches a prefill (rmsnorm also a decode step): mamba2 2 norms a block
@@ -351,6 +364,14 @@ MOE_OUT_TOL = 0.03
 # token-layers between any two bf16 runs) make a max over a few positions
 # swing from run to run
 MOE_LOGIT_RATIO = 1.5
+
+# decode attention (phase 14): olmoe-1b-7b's chat cell (64 slots of 2,560
+# rows; 16 heads of 128, one a KV head; bf16) and gemma3-1b's MQA (4 heads
+# of 256 over one KV head) over phase 3's cache of 1,056 rows, each at
+# ragged per-row positions: B, S, H, KV, hd
+DA_SHAPES = {"olmoe-1b-7b chat": (64, 2560, 16, 16, 128),
+             "gemma3-1b": (BATCH, PROMPT + NEW, 4, 1, 256)}
+DA_HOST_CALLS = 50            # calls whose issue the host clock times
 
 # the store tier (phase 13): the examples run on the card as subprocesses,
 # all at once, each within this many seconds
@@ -497,12 +518,13 @@ def cuobjdump() -> str | None:
 
 def build_kernels() -> dict:
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_reloc_copy import ops as prc
     from repro_torch.kernels.rmsnorm import ops as rn
 
     t0 = time.perf_counter()
-    logs = build.build_all([fa.SOURCE, rn.SOURCE, prc.SOURCE])
+    logs = build.build_all([fa.SOURCE, rn.SOURCE, prc.SOURCE, da.SOURCE])
     wall = time.perf_counter() - t0
     out = {"nvcc_wall_s": wall, "per_source_s": dict(build.build_seconds), "ptxas": {}}
     for source, text in logs.items():
@@ -1309,6 +1331,108 @@ def check_paged(table) -> dict:
     }
 
 
+# --------------------------------------------------------------- phase 14
+def decode_positions(b: int, s: int, rng):
+    """Ragged per-row positions for ``b`` rows of an ``s``-row cache: 0, 1,
+    s - 1 and s + 5 (a ring past its end: every row), the rest uniform."""
+    pos = rng.integers(0, s, b)
+    pos[:4] = (0, 1, s - 1, s + 5)
+    return pos
+
+
+def check_decode_attention() -> dict:
+    """decode_attention's kernel against its plain version at ``DA_SHAPES``
+    (bf16, per-row positions): the kernel's largest error against the plain
+    version run in float32 no larger than the bf16 plain run's, nor than
+    one bf16 step at the output's largest value; then its time (CUDA
+    events), device time (the profiler: both of its kernels), the bound by
+    bytes (each row's K and V up to its position read once), the plain
+    version's time, ``F.scaled_dot_product_attention``'s (the library
+    yardstick, on its own (B, heads, S, hd) layout; the port never calls
+    it) and the wrapper's host time a call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    g = torch.Generator(device=dev).manual_seed(14)
+    shapes = {}
+    for what, (B, S, H, KV, hd) in DA_SHAPES.items():
+        pos_np = decode_positions(B, S, rng)
+        pos = torch.as_tensor(pos_np, device=dev)
+        lens = np.minimum(pos_np + 1, S)
+
+        def make(n, B=B, S=S, H=H, KV=KV, hd=hd):
+            return tuple(torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+                         for shape in ((n, B, 1, H, hd), (n, B, S, KV, hd), (n, B, S, KV, hd)))
+
+        sets = input_sets(make, 2 * (2 * B * S * KV * hd + B * H * hd))
+        q, k, v = sets[0]
+        with torch.inference_mode():
+            got = da.decode_attention(q, k, v, pos).float()
+            ref = da.decode_attention_plain(q.float(), k.float(), v.float(), pos)
+            plain = da.decode_attention_plain(q, k, v, pos).float()
+        torch.cuda.synchronize()
+        err_k = (got - ref).abs().max().item()
+        err_p = (plain - ref).abs().max().item()
+        step = 2.0**-8 * ref.abs().max().item()
+        log(f"decode_attention {what} {(B, S, H, KV, hd)}: error against the f32 plain "
+            f"version {err_k:.3g}, the bf16 plain version's {err_p:.3g}, one bf16 step at "
+            f"the largest output {step:.3g}")
+        if not (bool(torch.isfinite(got).all()) and err_k <= err_p and err_k <= step):
+            fail(f"decode_attention {what}: kernel error {err_k} over the bf16 plain "
+                 f"version's {err_p} or one bf16 step {step}")
+        del got, ref, plain
+        lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st) for st in sets]
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+        call = rotating(lambda q, k, v: da.decode_attention(q, k, v, pos), sets)
+        with torch.inference_mode():
+            row = {"ms": time_ms(call),
+                   "device_ms": device_ms(call, f"decode_attention {what}"),
+                   "plain_ms": time_ms(rotating(
+                       lambda q, k, v: da.decode_attention_plain(q, k, v, pos), sets)),
+                   "library_ms": time_ms(rotating(
+                       lambda q, k, v: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask, enable_gqa=H != KV), lib_sets))}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DA_HOST_CALLS):
+                call()
+            row["host_us"] = (time.perf_counter() - t0) / DA_HOST_CALLS * 1e6
+            torch.cuda.synchronize()
+        rows_read = int(lens.sum())
+        nbytes = 2.0 * rows_read * KV * hd * 2 + 2.0 * B * H * hd * 2
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * rows_read * H * hd,
+                                                    BF16_FLOPS)
+        row.update(shape=(B, S, H, KV, hd), rows_read=rows_read, max_abs_err=err_k,
+                   bf16_plain_err=err_p, plan=da.plan(2, hd, H // KV, B, KV, S)._asdict(),
+                   of_bound=row["bound_ms"] / row["device_ms"])
+        log(f"decode_attention {what}: kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"{rows_read} rows read, {100 * row['of_bound']:.1f}% of it), plain "
+            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, host "
+            f"{row['host_us']:.1f} us a call; plan {row['plan']}")
+        if row["device_ms"] < row["bound_ms"]:
+            fail(f"decode_attention {what}: device time {row['device_ms']} ms is under "
+                 f"its bound {row['bound_ms']} ms: bytes counted too high")
+        shapes[what] = row
+        del sets, lib_sets, q, k, v, call
+        torch.cuda.empty_cache()
+    chat = shapes["olmoe-1b-7b chat"]
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "none: src/repro/models/common.py decode_attention (an XLA einsum)",
+        **{k: chat[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "host_us")},
+        "shapes": shapes,
+    }
+
+
 # --------------------------------------------------------------- set-up
 def publish(cfg, root) -> tuple:
     """A Workspace at ``root`` holding gemma3-1b's app (weights from seed 0,
@@ -1537,6 +1661,7 @@ def main_path(cfg, ws, host) -> dict:
 
     want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
             "rmsnorm_backward": 0, "paged_reloc_copy": 1, "non_causal": 0,
+            "decode_attention": DECODE_PER_STEP * (NEW - 1),
             "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
     run, result = static_batch(cfg, ws, host, want)
     batch = {"tokens": torch.as_tensor(run.prompts, device="cuda")}
@@ -1667,6 +1792,7 @@ def serve_epoch(cfg, ws, app) -> dict:
     want = {"flash_attention": FLASH_PER_PREFILL * report.admitted,
             "rmsnorm": RMS_PER_STEP * (report.admitted + report.steps),
             "rmsnorm_backward": 0, "paged_reloc_copy": 2,
+            "decode_attention": DECODE_PER_STEP * report.steps,
             "flash_routes": {"wgmma": FLASH_PER_PREFILL * report.admitted, "simt": 0}}
     s = report.summary()
     log(f"serve across an epoch: {json.dumps(s)}; launches {got}, expected {want}")
@@ -1776,13 +1902,15 @@ class MemorySampler:
 def worker_launches(stats: dict, flips: int) -> tuple[dict, dict]:
     """(counted, expected) launches of one traffic worker: the paged copy
     once at start and once per flip (``stable`` builds its arena on the
-    card), 26 flash launches per admission (all wgmma) and 105 rmsnorm
-    launches per admission and per step."""
+    card), 26 flash launches per admission (all wgmma), 105 rmsnorm
+    launches per admission and per step, and 26 decode_attention launches
+    per step."""
     loop = stats["serve_loop"]
     adm, steps = loop["admitted"], loop["steps"]
     want = {"flash_attention": FLASH_PER_PREFILL * adm,
             "rmsnorm": RMS_PER_STEP * (adm + steps),
             "rmsnorm_backward": 0, "paged_reloc_copy": 1 + flips,
+            "decode_attention": DECODE_PER_STEP * steps,
             "flash_routes": {"wgmma": FLASH_PER_PREFILL * adm, "simt": 0}}
     return stats["launches"], want
 
@@ -1970,7 +2098,8 @@ def traffic_plane(cfg, ws, app) -> dict:
         f"{tokens_check['max_margin_over_tol']:.3f} of its tolerance; "
         f"{time.perf_counter() - t:.1f} s)")
     total = {"flash_attention": 0, "rmsnorm": 0, "rmsnorm_backward": 0,
-             "paged_reloc_copy": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
+             "paged_reloc_copy": 0, "decode_attention": 0,
+             "flash_routes": {"wgmma": 0, "simt": 0}}
     per_worker = []
     for st in rep.worker_stats:
         got, want = worker_launches(st, flips=1)
@@ -1991,7 +2120,8 @@ def traffic_plane(cfg, ws, app) -> dict:
         if got != want or loop["rollovers"] != 1:
             fail(f"drive A worker {row['worker']}: launches {got} != {want} or "
                  f"rollovers {loop['rollovers']} != 1")
-        for k in ("flash_attention", "rmsnorm", "rmsnorm_backward", "paged_reloc_copy"):
+        for k in ("flash_attention", "rmsnorm", "rmsnorm_backward", "paged_reloc_copy",
+                  "decode_attention"):
             total[k] += got[k]
         for r in total["flash_routes"]:
             total["flash_routes"][r] += got["flash_routes"][r]
@@ -2183,6 +2313,7 @@ def store_path(cfg, ws, app, host) -> dict:
         got = {**launch_counts(), "non_causal": fa.launches_non_causal}
         want = {"flash_attention": FLASH_PER_PREFILL, "rmsnorm": RMS_PER_STEP * NEW,
                 "rmsnorm_backward": 0, "paged_reloc_copy": 0, "non_causal": 0,
+                "decode_attention": DECODE_PER_STEP * (NEW - 1),
                 "flash_routes": {"wgmma": FLASH_PER_PREFILL, "simt": 0}}
         log(f"store: served from the fetched arena; launches {got}, expected {want}")
         if got != want:
@@ -2497,7 +2628,7 @@ def serve_mixed(cfg, engine, per_admission: dict, per_step: dict) -> dict:
     got = {**launch_counts(), "non_causal": fa.launches_non_causal}
     want = {k: per_admission.get(k, 0) * rep.admitted + per_step.get(k, 0) * rep.steps
             for k in ("flash_attention", "rmsnorm", "rmsnorm_backward",
-                      "paged_reloc_copy", "non_causal")}
+                      "paged_reloc_copy", "non_causal", "decode_attention")}
     want["flash_routes"] = {"wgmma": want["flash_attention"], "simt": 0}
     s = rep.summary()
     log(f"{cfg.name} serve_loop: {json.dumps(s)}; launches {got}, expected {want}")
@@ -2537,6 +2668,7 @@ def moe_path() -> dict:
         per_prefill = {"flash_attention": MOE_FLASH, "rmsnorm": MOE_RMS}
         want = {"flash_attention": MOE_FLASH, "rmsnorm": MOE_RMS * NEW,
                 "rmsnorm_backward": 0, "paged_reloc_copy": 1, "non_causal": 0,
+                "decode_attention": MOE_DECODE * (NEW - 1),
                 "flash_routes": {"wgmma": MOE_FLASH, "simt": 0}}
         run, out = static_batch(cfg, ws, host, want)
         del host
@@ -2599,7 +2731,7 @@ def moe_path() -> dict:
         out.update(moe_layers=totals, moe_worst_out_err_over_tol=worst,
                    moe_layer_rows=layers, logits=logit)
         out["serve_loop"] = serve_mixed(cfg, engine, per_prefill,
-                                        {"rmsnorm": MOE_RMS})
+                                        {"rmsnorm": MOE_RMS, "decode_attention": MOE_DECODE})
         del run, engine
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2621,6 +2753,7 @@ def encdec_path() -> dict:
         per_prefill = {"flash_attention": ENCDEC_FLASH, "non_causal": ENCDEC_CROSS}
         want = {"flash_attention": ENCDEC_FLASH, "rmsnorm": 0, "rmsnorm_backward": 0,
                 "paged_reloc_copy": 1, "non_causal": ENCDEC_CROSS,
+                "decode_attention": ENCDEC_DECODE * (NEW - 1),
                 "flash_routes": {"wgmma": ENCDEC_FLASH, "simt": 0}}
         run, out = static_batch(cfg, ws, host, want)
         del host
@@ -2636,7 +2769,8 @@ def encdec_path() -> dict:
         log(f"{cfg.name} static batch: all {out['static_tokens_check']['positions']} "
             "tokens within tolerance of a float32 run")
         del batch, frames
-        out["serve_loop"] = serve_mixed(cfg, engine, per_prefill, {})
+        out["serve_loop"] = serve_mixed(cfg, engine, per_prefill,
+                                        {"decode_attention": ENCDEC_DECODE})
         del run, engine
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2664,6 +2798,7 @@ def ssm_path(arch: str, flash: int, rms: int, layers: int = 0) -> dict:
         per_prefill = {"flash_attention": flash, "rmsnorm": rms}
         want = {"flash_attention": flash, "rmsnorm": rms * NEW, "rmsnorm_backward": 0,
                 "paged_reloc_copy": 1, "non_causal": 0,
+                "decode_attention": flash * (NEW - 1),
                 "flash_routes": {"wgmma": flash, "simt": 0}}
         run, out = static_batch(cfg, ws, host, want)
         del host
@@ -2676,7 +2811,8 @@ def ssm_path(arch: str, flash: int, rms: int, layers: int = 0) -> dict:
         log(f"{cfg.name} static batch: all {out['static_tokens_check']['positions']} "
             f"tokens within tolerance of a float32 run "
             f"({out['static_tokens_check']['argmax_equal']} its argmax)")
-        out["serve_loop"] = serve_mixed(cfg, engine, per_prefill, {"rmsnorm": rms})
+        out["serve_loop"] = serve_mixed(cfg, engine, per_prefill,
+                                        {"rmsnorm": rms, "decode_attention": flash})
         del run, engine
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3022,7 +3158,7 @@ def train_path() -> dict:
         per_step, steps_run = train_rms_launches(cfg), len(res.losses)
         want = {"flash_attention": 0, "rmsnorm": per_step["forward"] * steps_run,
                 "rmsnorm_backward": per_step["backward"] * steps_run,
-                "paged_reloc_copy": 2, "non_causal": 0,
+                "paged_reloc_copy": 2, "non_causal": 0, "decode_attention": 0,
                 "flash_routes": {"wgmma": 0, "simt": 0}}
         log(f"{cfg.name} training ran in {wall:.1f} s: losses {res.losses}, restarts "
             f"{res.restarts}, starts {res.startup_stats}")
@@ -3227,6 +3363,7 @@ def mesh_serve(cfg, mesh, params, flash: int, rms: int) -> dict:
             lambda: models.prefill(cfg, params, {"tokens": tokens}, impl="kernel"))
     want = {"flash_attention": flash, "rmsnorm": rms * (1 + MESH_DECODE),
             "rmsnorm_backward": 0, "paged_reloc_copy": 0, "non_causal": 0,
+            "decode_attention": flash * MESH_DECODE,
             "flash_routes": {"wgmma": flash, "simt": 0}}
     log(f"{cfg.name} mesh serving: launches {got}, expected {want}")
     if got != want:
@@ -3406,7 +3543,8 @@ def mesh_train(cfg, mesh, root) -> dict:
             eager.pop("final")
     want = {"flash_attention": 0, "rmsnorm": per_step["forward"] * MESH_TRAIN_STEPS,
             "rmsnorm_backward": per_step["backward"] * MESH_TRAIN_STEPS,
-            "paged_reloc_copy": 1, "non_causal": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
+            "paged_reloc_copy": 1, "non_causal": 0, "decode_attention": 0,
+            "flash_routes": {"wgmma": 0, "simt": 0}}
     got = runs["mesh"]["launches"]
     log(f"{cfg.name} mesh training: losses {runs['mesh']['losses']} (meshless "
         f"{runs['meshless']['losses']}); launches {got}, expected {want}")
@@ -3518,7 +3656,7 @@ def mesh_moe(mesh) -> dict:
         torch.cuda.empty_cache()
     want = {"flash_attention": 0, "rmsnorm": per_step["forward"],
             "rmsnorm_backward": per_step["backward"], "paged_reloc_copy": 0,
-            "non_causal": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
+            "non_causal": 0, "decode_attention": 0, "flash_routes": {"wgmma": 0, "simt": 0}}
     log(f"{cfg.name} mesh training at {cfg.num_layers} layers: loss "
         f"{runs['mesh']['loss']!r} (meshless {runs['meshless']['loss']!r}); launches "
         f"{runs['mesh']['launches']}, expected {want}")
@@ -3659,6 +3797,11 @@ def main() -> None:
         detail["phase_s"][n] = detail["phase_s"].get(n, 0.0) + time.perf_counter() - t
         log(f"phase {n} ({key}): {time.perf_counter() - t:.1f} s")
 
+    decode_row = None
+    if phase(14):
+        t = time.perf_counter()
+        decode_row = check_decode_attention()
+        detail["phase_s"][14] = time.perf_counter() - t
     if any(phase(n) for n in (*range(2, 7), 13)):
         root = tempfile.mkdtemp(prefix="chip-smoke-ws-")
         ws = None
@@ -3709,6 +3852,8 @@ def main() -> None:
         timed(11, "train", train_path)
     if phase(12):
         timed(12, "mesh", mesh_path)
+    if decode_row is not None:
+        kernels.append(decode_row)
     detail["empty_profiles"] = EMPTY_PROFILES
     detail["total_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)

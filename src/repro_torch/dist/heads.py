@@ -77,11 +77,12 @@ def _first_head(mesh, placements, heads: int) -> tuple[int, int]:
     return lo, heads
 
 
-def on_local_heads(fn, q, k, v):
-    """``fn(q, k, v)`` on each device's shards of the DTensors among q, k
-    and v (a plain tensor is taken as replicated); the result is placed
-    as q is."""
-    from torch.distributed.tensor import DTensor, Replicate
+def on_local_heads(fn, q, k, v, *rows):
+    """``fn(q, k, v, *rows)`` on each device's shards of the DTensors among
+    q, k and v (a plain tensor is taken as replicated); the result is
+    placed as q is. Each of ``rows`` (a decode's per-row positions) has the
+    batch as its first axis and is cut as q's batch is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
@@ -97,6 +98,11 @@ def on_local_heads(fn, q, k, v):
     group = heads // kv_heads
     lo, hi = a // group - kv_a, (a + h - 1) // group + 1 - kv_a
     local = fn if (lo, hi) == (0, kv) else (
-        lambda q_, k_, v_: fn(q_, k_[:, :, lo:hi], v_[:, :, lo:hi]))
-    return local_map(local, out_placements=list(qp), in_placements=(qp, kp, kp),
-                     in_grad_placements=(qp, kg, kg), device_mesh=mesh)(q, k, v)
+        lambda q_, k_, v_, *r: fn(q_, k_[:, :, lo:hi], v_[:, :, lo:hi], *r))
+    rp = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in qp)
+    rows = tuple((t if is_dtensor(t) else DTensor.from_local(t, mesh, repl, run_check=False)
+                  ).redistribute(mesh, rp) for t in rows)
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(qp, kp, kp, *(rp,) * len(rows)),
+                     in_grad_placements=(qp, kg, kg, *(rp,) * len(rows)),
+                     device_mesh=mesh)(q, k, v, *rows)

@@ -1,10 +1,11 @@
 """Kernels written by hand for Hopper in CUDA C++ (``csrc/``, built by
 ``build``), each beside its plain PyTorch version: ``flash_attention``,
-``rmsnorm`` and ``paged_reloc_copy``. Together they replace every Pallas
-kernel of the reference; ``chip_smoke.py`` builds and runs all three on an
-H100. ``paged_reloc_copy`` builds the arena on the card at every
-table-driven epoch load (``core/device_arena.py``); ``rmsnorm`` also has a
-backward kernel, which training runs.
+``rmsnorm`` and ``paged_reloc_copy`` replace every Pallas kernel of the
+reference, and ``decode_attention`` (a decode step's attention against the
+KV cache) replaces an einsum the reference left to XLA; ``chip_smoke.py``
+builds and runs all four on an H100. ``paged_reloc_copy`` builds the arena
+on the card at every table-driven epoch load (``core/device_arena.py``);
+``rmsnorm`` also has a backward kernel, which training runs.
 
 Each wrapper counts its own kernel launches (plain-version calls do not
 count); ``launch_counts`` reads the counters of this process and
@@ -24,6 +25,7 @@ _COUNTERS = (                    # (kernel module, counter, route or None)
     ("rmsnorm", "backward_launches_by_route", "tma"),
     ("rmsnorm", "backward_launches_by_route", "two_pass"),
     ("paged_reloc_copy", "launches", None),
+    ("decode_attention", "launches", None),
 )
 
 
@@ -31,6 +33,7 @@ def launch_counts() -> dict:
     """This process's kernel launches: one count per kernel (rmsnorm's
     backward apart from its forward), and flash attention's launches per
     route."""
+    from .decode_attention import ops as da
     from .flash_attention import ops as fa
     from .paged_reloc_copy import ops as prc
     from .rmsnorm import ops as rn
@@ -38,6 +41,7 @@ def launch_counts() -> dict:
     return {"flash_attention": fa.launches, "rmsnorm": rn.launches,
             "rmsnorm_backward": rn.backward_launches,
             "paged_reloc_copy": prc.launches,
+            "decode_attention": da.launches,
             "flash_routes": dict(fa.launches_by_route)}
 
 
@@ -47,11 +51,13 @@ def zero_launch_counts() -> None:
 
 
 def _ops(kernel: str):
+    from .decode_attention import ops as da
     from .flash_attention import ops as fa
     from .paged_reloc_copy import ops as prc
     from .rmsnorm import ops as rn
 
-    return {"flash_attention": fa, "rmsnorm": rn, "paged_reloc_copy": prc}[kernel]
+    return {"flash_attention": fa, "rmsnorm": rn, "paged_reloc_copy": prc,
+            "decode_attention": da}[kernel]
 
 
 def counter_snapshot() -> dict:

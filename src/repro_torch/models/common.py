@@ -10,6 +10,9 @@ Attention implementations (the ``impl`` switch):
   launches the CUDA C++ kernel for CUDA tensors and runs its plain version
   for CPU tensors.
 
+``decode_attention`` (one new token against a cache) goes through
+``kernels.decode_attention`` off the CPU and its plain version on it.
+
 ``rms_norm`` always goes through ``kernels.rmsnorm`` (the CUDA C++ kernel
 on CUDA, its plain version on the CPU).
 """
@@ -24,6 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.dist.context import is_dtensor
 from repro_torch.dist.heads import on_local_heads
+from repro_torch.kernels.decode_attention import decode_attention as kernel_decode_attention
+from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -255,25 +260,16 @@ def decode_attention(q, k_cache, v_cache, pos):
     """Single-token attention against a cache; entries beyond ``pos`` masked.
 
     q (B,1,H,hd), caches (B,S,KV,hd). ``pos`` is an int shared by every row
-    or a (B,) integer tensor, one position per row. GQA as a grouped einsum
-    against the UNEXPANDED cache, scores in f32 (the reference's
-    ``preferred_element_type=f32``)."""
-    b, s, kvh, hd = k_cache.shape
-    h = q.shape[2]
-    g = h // kvh
+    or a (B,) integer tensor, one position per row. Off the CPU this is
+    the ``decode_attention`` kernel (``kernels/decode_attention``), which
+    reads the cache in place; on the CPU its plain version: GQA as a
+    grouped einsum against the UNEXPANDED cache, scores in f32 (the
+    reference's ``preferred_element_type=f32``)."""
+    if not q.is_cpu:
+        return kernel_decode_attention(q, k_cache, v_cache, pos)
     if is_dtensor(q):        # whole KV groups on each device (see split_heads)
-        q = _whole(q, (2, 3), kvh)
-    qg = q.reshape(b, 1, kvh, g, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * hd**-0.5
-    if isinstance(pos, torch.Tensor):
-        valid = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
-        valid = valid[:, None, None, None, :]           # (B,1,1,1,S)
-    else:
-        valid = torch.arange(s, device=q.device) <= pos
-    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v_cache.dtype), v_cache)
-    return out.reshape(b, 1, h, hd)
+        q = _whole(q, (2, 3), k_cache.shape[2])
+    return decode_attention_plain(q, k_cache, v_cache, pos)
 
 
 # --------------------------------------------------------------------- MLP

@@ -119,3 +119,54 @@ def test_attention_pairs_of_a_window(smoke):
     brute = lambda s, w: sum(min(q + 1, w) if w else q + 1 for q in range(s))
     for s, w in ((16, 0), (16, 4), (16, 16), (16, 40), (4096, 512)):
         assert smoke.attention_pairs(s, w) == brute(s, w)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b", "seamless-m4t-large-v2",
+                                  "mamba2-370m", "zamba2-7b"])
+def test_decode_attention_launches_a_step_are_one_an_attention_layer(smoke, arch,
+                                                                     monkeypatch):
+    """The decode_attention launches ``chip_smoke.py`` expects a decode
+    step: a decode step of each family's smoke config calls
+    ``decode_attention`` once for each attention layer (twice for an
+    encoder-decoder's: self and cross; once per shared-block invocation
+    for the hybrid; never for the SSM), and the script's constants are
+    that count at the depths its phases serve."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.models import hybrid, transformer
+    from repro_torch.serve.scheduler import stub_frames
+
+    calls = []
+    for mod in (transformer, hybrid):
+        real = mod.decode_attention
+        monkeypatch.setattr(mod, "decode_attention",
+                            lambda *a, _real=real: calls.append(1) or _real(*a))
+    cfg = get_config(arch, smoke=True)
+    params = models.init_params(cfg, 0, "cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12), dtype=np.int32)
+    batch = {"tokens": torch.as_tensor(toks)}
+    if cfg.is_encdec:
+        batch["frames"] = stub_frames(cfg, 2, 12, "cpu")
+    with torch.inference_mode():
+        logits, cache = models.prefill(cfg, params, batch, cache_len=16)
+        assert not calls
+        models.decode_step(cfg, params, cache, logits[:, -1:].argmax(-1).to(torch.int32))
+
+    def per_step(c):
+        if c.family == "ssm":
+            return 0
+        if c.family == "hybrid":
+            return hybrid.n_invocations(c)
+        return c.num_layers * (2 if c.is_encdec else 1)
+
+    assert len(calls) == per_step(cfg)
+    published = {"gemma3-1b": (get_config(arch), smoke.DECODE_PER_STEP),
+                 "olmoe-1b-7b": (get_config(arch).replace(num_layers=smoke.MOE_LAYERS),
+                                 smoke.MOE_DECODE),
+                 "seamless-m4t-large-v2": (get_config(arch), smoke.ENCDEC_DECODE),
+                 "mamba2-370m": (get_config(arch, smoke=True), smoke.SSM_FLASH),
+                 "zamba2-7b": (get_config(arch).replace(num_layers=smoke.HYBRID_LAYERS),
+                               smoke.HYBRID_FLASH)}
+    c, want = published[arch]
+    assert per_step(c) == want

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.rmsnorm import ops as rn
 
@@ -64,11 +65,15 @@ def qkv(case, seed=0):
 
 
 def test_wrappers_count_no_launch_on_cpu():
-    before = (fa.launches, rn.launches)
+    before = (fa.launches, rn.launches, da.launches)
     q, k, v = (torch.from_numpy(a) for a in qkv(FA_CASES[0]))
     fa.flash_attention(q, k, v)
     rn.rmsnorm(q, torch.ones(q.shape[-1]))
-    assert (fa.launches, rn.launches) == before
+    for case in DECODE_CASES[-2:]:
+        q1, k1, v1, pos = _da_args(case, "cpu")
+        want = da.decode_attention_plain(q1, k1, v1, pos)
+        assert torch.equal(da.decode_attention(q1, k1, v1, pos), want)
+    assert (fa.launches, rn.launches, da.launches) == before
 
 
 def test_wrappers_raise_on_a_device_without_kernel():
@@ -77,6 +82,255 @@ def test_wrappers_raise_on_a_device_without_kernel():
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel"):
         rn.rmsnorm(q, torch.empty(16, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        da.decode_attention(q[:, :1], q, q, 3)
+
+
+# decode attention: name, B, S, H, KV, hd, dtype, per-row positions (else
+# the scalar S // 3)
+DECODE_CASES = [
+    ("olmoe-1b-7b chat", 64, 2560, 16, 16, 128, torch.bfloat16, True),
+    ("olmoe-1b-7b chat, one position", 64, 2560, 16, 16, 128, torch.bfloat16, False),
+    ("zamba2-7b hd 224", 4, 1056, 32, 32, 224, torch.bfloat16, True),
+    ("gemma3-1b MQA hd 256", 4, 1056, 4, 1, 256, torch.bfloat16, True),
+    ("GQA g 8", 2, 300, 64, 8, 128, torch.bfloat16, True),
+    ("bf16 hd 16", 3, 200, 4, 2, 16, torch.bfloat16, True),
+    ("f32 hd 256", 2, 333, 4, 1, 256, torch.float32, True),
+    ("f32 hd 224", 2, 100, 2, 2, 224, torch.float32, False),
+    ("f32 hd 32", 4, 70, 4, 2, 32, torch.float32, True),
+    ("smoke f32 hd 16", 2, 32, 4, 2, 16, torch.float32, True),
+    ("smoke f32 hd 16 MQA", 2, 32, 4, 1, 16, torch.float32, False),
+]
+
+
+def decode_inputs(case, seed=0):
+    """numpy f32 q (B,1,H,hd), caches (B,S,KV,hd) and positions for a
+    decode case: per row 0, 1, S - 1 and S + 5 (a ring past its end), the
+    rest uniform; or the scalar S // 3."""
+    _, B, S, H, KV, hd, _, per_row = case
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, S, B)
+    pos[:4] = (0, 1, S - 1, S + 5)[:B]
+    return (rng.standard_normal((B, 1, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            pos if per_row else np.array(S // 3))
+
+
+def decode_close(got, q, k, v, pos):
+    """The kernel's output against the plain version run in float32: float32
+    within 1e-5 (another summation order); bf16 within one bf16 step at the
+    output's largest value (the kernel rounds once, at its output), and no
+    further off than the bf16 plain version where the case has 10,000
+    outputs or more."""
+    assert got.dtype == q.dtype and got.shape == q.shape and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    ref = da.decode_attention_plain(q.float(), k.float(), v.float(), pos)
+    err = (got.float() - ref).abs().max().item()
+    if q.dtype == torch.float32:
+        assert err <= 1e-5, err
+        return
+    assert err <= 2.0**-8 * ref.abs().max().item(), err
+    if got.numel() >= 10_000:
+        plain = da.decode_attention_plain(q, k, v, pos).float()
+        assert err <= (plain - ref).abs().max().item()
+
+
+def _da_args(case, cuda, seed=0):
+    q, k, v, pos = decode_inputs(case, seed)
+    dt = case[6]
+    pos = torch.as_tensor(pos, device=cuda) if pos.ndim else int(pos)
+    return (*(torch.from_numpy(a).to(cuda, dt) for a in (q, k, v)), pos)
+
+
+@pytest.mark.parametrize("dt,vec", [(torch.float32, 4), (torch.bfloat16, 8)])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 16])
+def test_decode_attention_plan_fits_every_head_dim(dt, vec, g):
+    """The launch plan at every head_dim the kernel takes: a CTA's shared
+    memory inside 48 KB, a row's lanes cover its vectors, the query heads a
+    CTA divide g, a chunk is whole passes and the splits cover S once."""
+    size = torch.tensor([], dtype=dt).element_size()
+    for hd in range(vec, da.MAX_HEAD_DIM + 1, vec):
+        for b, kvh, s in ((1, 1, 1), (4, 1, 1056), (64, 16, 2560), (2, 8, 300)):
+            p = da.plan(size, hd, g, b, kvh, s)
+            assert p.smem_bytes <= da._SMEM_BYTES, (hd, g, p)
+            assert hd <= vec * p.lpr * p.nv and p.lpr <= 32 and p.lpr & (p.lpr - 1) == 0
+            assert g % p.group == 0 and p.group in (1, 2, 4, 8)
+            assert p.chunk % p.rows == 0 and (p.nsplit - 1) * p.chunk < s <= p.nsplit * p.chunk
+
+
+def test_decode_attention_plan_at_the_chat_shape():
+    """olmoe-1b-7b's chat cell: 16 lanes a row of 128 bf16, 32 rows a pass,
+    chunks of 256 rows, 10 splits of a 2,560-row cache; gemma3-1b's MQA at
+    hd 256: the 4 heads of a KV group in one CTA."""
+    assert da.plan(2, 128, 1, 64, 16, 2560) == (16, 1, 1, 32, 256, 10, 4 * 8 * 130)
+    p = da.plan(2, 256, 4, 4, 1, 1056)
+    assert (p.lpr, p.group, p.rows) == (32, 4, 16) and p.nsplit * 4 >= 256
+
+
+@pytest.mark.parametrize("what", ["dtype", "mixed dtypes", "head_dim over 256",
+                                  "head_dim not whole vectors", "strided head_dim",
+                                  "unaligned stride", "pos shape", "pos dtype",
+                                  "q rows"])
+def test_decode_attention_raises_on_what_the_kernel_cannot_take(what):
+    """Off the CPU the wrapper checks its inputs before anything runs, so
+    the checks show on the meta device (which then has no kernel)."""
+    meta = lambda *shape, dt=torch.bfloat16: torch.empty(shape, device="meta", dtype=dt)
+    q, k, pos = meta(2, 1, 4, 128), meta(2, 64, 2, 128), 5
+    v = k
+    err = ValueError
+    if what == "dtype":
+        q, k, v, err = meta(2, 1, 4, 128, dt=torch.float16), meta(
+            2, 64, 2, 128, dt=torch.float16), meta(2, 64, 2, 128, dt=torch.float16), TypeError
+    elif what == "mixed dtypes":
+        v, err = meta(2, 64, 2, 128, dt=torch.float32), TypeError
+    elif what == "head_dim over 256":
+        q, k, v = meta(2, 1, 4, 512), meta(2, 64, 2, 512), meta(2, 64, 2, 512)
+    elif what == "head_dim not whole vectors":
+        q, k, v = meta(2, 1, 4, 12), meta(2, 64, 2, 12), meta(2, 64, 2, 12)
+    elif what == "strided head_dim":
+        k = meta(2, 64, 2, 256)[..., ::2]
+    elif what == "unaligned stride":
+        k = meta(2, 64, 2, 132)[..., :128]
+    elif what == "pos shape":
+        pos = torch.zeros(3, dtype=torch.int64, device="meta")
+    elif what == "pos dtype":
+        pos, err = torch.zeros(2, device="meta"), TypeError
+    elif what == "q rows":
+        q = meta(2, 2, 4, 128)
+    with pytest.raises(err) as got:
+        da.decode_attention(q, k, v, pos)
+    assert "no kernel" not in str(got.value)
+
+
+def test_decode_attention_on_dtensors_takes_each_devices_rows(tmp_path):
+    """On DTensors the wrapper runs on each device's shard through
+    ``on_local_heads``, with a per-row ``pos`` cut as q's batch is (a one-rank
+    gloo mesh on the CPU, where the shard runs the plain version): the plain
+    version's bits, placed as q."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    case = DECODE_CASES[-2]
+    q, k, v, pos = _da_args(case, "cpu")
+    want = da.decode_attention_plain(q, k, v, pos)
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                                rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,))
+        qd = DTensor.from_local(q, mesh, (Shard(0),), run_check=False)
+        kd, vd = (DTensor.from_local(t, mesh, (Replicate(),), run_check=False)
+                  for t in (k, v))
+        for p in (pos, int(case[2] // 3)):
+            got = da.decode_attention(qd, kd, vd, p)
+            assert tuple(got.placements) == (Shard(0),)
+            plain = da.decode_attention_plain(q, k, v, p)
+            assert torch.equal(got.to_local(), plain)
+        assert torch.equal(da.decode_attention(qd, kd, vd, pos).to_local(), want)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_decode_attention_kernel_matches_plain_on_card(cuda, case):
+    q, k, v, pos = _da_args(case, cuda)
+    n = da.launches
+    got = da.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert da.launches == n + 1
+    decode_close(got, q, k, v, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [DECODE_CASES[0], DECODE_CASES[3], DECODE_CASES[-2]],
+                         ids=["chat", "MQA hd 256", "smoke f32"])
+def test_decode_attention_reads_no_cache_row_past_its_position_on_card(cuda, case):
+    """Every cache row past each row's position holds NaN, in K and in V:
+    the output is finite and the clean cache's, as the plain version gives
+    on the clean cache."""
+    q, k, v, pos = _da_args(case, cuda, seed=1)
+    clean = da.decode_attention(q, k, v, pos)
+    after = torch.arange(k.shape[1], device=cuda)[None, :] > pos[:, None]
+    kp, vp = k.clone(), v.clone()
+    kp[after], vp[after] = float("nan"), float("nan")
+    assert bool(torch.isnan(kp).any())
+    got = da.decode_attention(q, kp, vp, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+    decode_close(got, q, k, v, pos)
+
+
+@pytest.mark.cuda
+def test_decode_attention_reads_a_strided_layer_of_the_stacked_cache_on_card(cuda):
+    """``cache["k"][i]`` of the stacked (L, B, S, KV, hd) cache, and a
+    window's slice of it (the scalar-position path of a windowed layer),
+    read in place through their strides; the same bits as a contiguous
+    copy."""
+    rng = np.random.default_rng(2)
+    L, B, S, KV, H, hd = 3, 4, 1056, 2, 8, 128
+    ks, vs = (torch.from_numpy(rng.standard_normal((L, B, S, KV, hd)).astype(np.float32))
+              .to(cuda, torch.bfloat16) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    pos = torch.as_tensor(rng.integers(0, S, B), device=cuda)
+    k, v = ks[1], vs[1]
+    got = da.decode_attention(q, k, v, pos)
+    assert torch.equal(got, da.decode_attention(q, k.contiguous(), v.contiguous(), pos))
+    decode_close(got, q, k, v, pos)
+    start, window, p = 300, 512, 700
+    kw, vw = k[:, start:start + window], v[:, start:start + window]
+    assert not kw.is_contiguous()
+    got = da.decode_attention(q, kw, vw, p - start)
+    torch.cuda.synchronize()
+    decode_close(got, q, kw, vw, p - start)
+
+
+@pytest.mark.cuda
+def test_decode_attention_gemma_windows_through_the_gather_on_card(cuda):
+    """gemma3-1b's decode geometry (``transformer._row_windows``): MQA at hd
+    256, each sliding window gathered per row, and the global layers' whole
+    cache, at per-row positions on both sides of the window's length."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("gemma3-1b")
+    rng = np.random.default_rng(3)
+    B, S, hd = 4, 1056, cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, KV, hd)).astype(np.float32))
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    geo = transformer._row_windows(cfg, (3, 511, 700, 1055), S, cuda)
+    windows = [w for w in geo if isinstance(w, int)]
+    assert windows and all(0 < w < S for w in windows)
+    rows = torch.arange(B, device=cuda)
+    for w in windows:
+        win, at = geo[w]
+        kw, vw = k[rows[:, None], win], v[rows[:, None], win]
+        decode_close(da.decode_attention(q, kw, vw, at), q, kw, vw, at)
+    decode_close(da.decode_attention(q, k, v, geo["pos"]), q, k, v, geo["pos"])
+
+
+@pytest.mark.cuda
+def test_decode_attention_cross_attention_at_hd_64_on_card(cuda):
+    """seamless-m4t-large-v2's cross-attention: hd 64, 16 heads over the
+    encoder's keys and values, a per-row ``xpos`` (each row's last frame),
+    and the scalar one (all frames)."""
+    rng = np.random.default_rng(4)
+    B, F, H, hd = 4, 300, 16, 64
+    xk, xv = (torch.from_numpy(rng.standard_normal((B, F, H, hd)).astype(np.float32))
+              .to(cuda, torch.bfloat16) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    xpos = torch.as_tensor([F - 1, 120, 7, 250], device=cuda)
+    decode_close(da.decode_attention(q, xk, xv, xpos), q, xk, xv, xpos)
+    decode_close(da.decode_attention(q, xk, xv, F - 1), q, xk, xv, F - 1)
 
 
 # ------------------------------------------------------------ on the card
@@ -456,7 +710,8 @@ def test_run_traffic_on_card_matches_cpu_with_exact_launches(cuda, tmp_path):
     simt flash route) on the card: each worker's own launch counts are
     exact (one paged copy for its ``stable`` load, one flash launch per
     layer per admission, 4 x layers + 1 rmsnorm launches per admission and
-    per step), and every stream equals the same drive's on the CPU."""
+    per step, one decode_attention launch per layer per step), and every
+    stream equals the same drive's on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.core import EpochCache, shm_arena
     from repro_torch.launch.serve import publish_model
@@ -494,6 +749,7 @@ def test_run_traffic_on_card_matches_cpu_with_exact_launches(cuda, tmp_path):
             "rmsnorm": (4 * layers + 1) * (adm + steps),
             "rmsnorm_backward": 0,
             "paged_reloc_copy": 1,
+            "decode_attention": layers * steps,
             "flash_routes": {"wgmma": 0, "simt": layers * adm},
         }, st
 
@@ -639,6 +895,7 @@ def test_local_mesh_steps_on_card_give_the_meshless_bits(cuda, arch):
         assert torch.equal(p1[n], t), n
     assert c1 == c0 and c1["rmsnorm"] > 0 and c1["rmsnorm_backward"] > 0
     assert c1["flash_attention"] == (0 if arch == "mamba2-370m" else cfg.num_layers)
+    assert c1["decode_attention"] == (0 if arch == "mamba2-370m" else 3 * cfg.num_layers)
 
 
 # --------------------------------------------- the compiled (captured) step
