@@ -11,9 +11,10 @@ does. ``source()`` hands each request to the loop once it falls due (its
 lateness is printed); ``on_delta`` stamps every streamed token; the loop
 runs greedy with streaming on, and is stopped at the window's close by an
 exception from those callbacks (each runs right after the loop has
-synchronised with the card). With ``--trace 1`` the profiler covers
-``trace_s`` seconds from ``trace_at_s`` into the window, started and
-stopped at such points.
+synchronised with the card). Where the run profiles (``--trace 1``, or
+an end-to-end metric of the cell read from the device trace) the profiler
+covers ``trace_s`` seconds from ``trace_at_s`` into the window, started
+and stopped at such points.
 
 The check: once the window has closed, the loop's state is gone and the
 peak memory read, a sample of the requests finished in the window (the
@@ -72,7 +73,7 @@ def window(ctx, st) -> Record:
     mix = ctx.traffic
     plan = gen.schedule(mix, ctx.seed, ctx.seconds, ctx.cfg.vocab_size)
     rec = Record("serve", ctx.conf)
-    tracer = Tracer(ctx.trace, str(ctx.device))
+    tracer = Tracer(ctx.profile, str(ctx.device))
     tracer.warm()
     t0 = time.monotonic()
     rec.setup_s = t0 - ctx.t_proc0

@@ -12,9 +12,11 @@ The window: each iteration drops the previous replica, then runs
 (during an epoch ``auto`` is the table-driven ``stable`` load: the arena
 built on the card by one ``paged_reloc_copy``, the parameters lifted as its
 views) and serves one request of ``prompt_len`` tokens to its first token
-(``generate``: a B=1 prefill and its argmax, read back to the host). With
-``--trace 1`` the profiler covers the starts that begin within the mix's
-``trace_s`` seconds of the window's opening.
+(``generate``: a B=1 prefill and its argmax, read back to the host). Where
+the run profiles (``--trace 1``, or an end-to-end metric of the cell read
+from the device trace, as ``start_device_ms`` is) the profiler covers the
+starts that begin within the mix's ``trace_s`` seconds of the window's
+opening.
 
 The check: every parameter of the last replica equal, bit for bit, to the
 weights the benchmark made (the arena the copy built); and each sampled
@@ -82,7 +84,7 @@ def setup(ctx) -> dict:
 
 def window(ctx, st) -> Record:
     rec = Record("start", ctx.conf)
-    tracer = Tracer(ctx.trace, str(ctx.device))
+    tracer = Tracer(ctx.profile, str(ctx.device))
     tracer.warm()
     t_open = time.monotonic()
     rec.setup_s = t_open - ctx.t_proc0

@@ -81,10 +81,26 @@ def starts(rec) -> list:
     return [s for s in rec.starts if rec.in_window(s["first_ts"])]
 
 
+def traced_starts(rec) -> list:
+    """The starts that began and reached their first token inside the
+    traced stretch (none without a trace)."""
+    if rec.trace is None:
+        return []
+    return [s for s in rec.starts if s["t0"] >= rec.trace["t0"] and rec.traced(s["first_ts"])]
+
+
+def device_ms_per_start(rec) -> float | None:
+    """The card's busy milliseconds over the traced stretch, per start in
+    it. The profiler starts and stops where the host has just read a first
+    token back, so the stretch holds whole starts and nothing else."""
+    traced = traced_starts(rec)
+    return 1e3 * rec.trace["busy_s"] / len(traced) if traced else None
+
+
 def page_copy_share(rec) -> float | None:
     if rec.trace is None:
         return None
-    traced = [s for s in rec.starts if s["t0"] >= rec.trace["t0"] and rec.traced(s["first_ts"])]
+    traced = traced_starts(rec)
     bound = sum(roofline.page_copy_bytes(s["payload_bytes"]) / roofline.HBM_BYTES_S
                 for s in traced)
     spent = kernel_seconds(rec.trace, "page_copy_kernel")

@@ -8,13 +8,20 @@ measures for ``--seconds`` seconds, then checks what the timed path
 produced against the plain float32 reference. With ``--trace 0`` the
 result carries the cell's end-to-end metrics, with ``--trace 1`` its
 per-layer metrics, the device's busy and traced seconds, and a breakdown.
+The profiler runs over the mix's traced stretch with ``--trace 1``, and in
+every run of a cell that has an end-to-end metric read from the device
+trace (``"source": "device_trace"`` in ``BENCHMARK.json``).
 
-The last lines on standard error, and the result's last key ``checks``,
-give each number compared beside its limit; the last line on standard
-output is the result, one JSON object. Without a card (or with fewer than
-the cell asks for) the run prints no result and exits 3; if ``jax``,
-``jaxlib``, ``flax``, ``ml_dtypes`` or the JAX package ``repro`` is loaded
-once the window has closed, it names them and exits 4.
+Standard error opens with a line on the card and one on the host
+(``bench/host.py``: CPU model, the CPUs in force, the card's NUMA node,
+the load), and after the window a line says how often Python's collector
+ran in it, by generation (``host.Collector``). The last lines on standard
+error, and the result's last key ``checks``, give each number compared
+beside its limit; the last line on standard output is the result, one
+JSON object. Without a card (or with fewer than the cell asks for) the run
+prints no result and exits 3; if ``jax``, ``jaxlib``, ``flax``,
+``ml_dtypes`` or the JAX package ``repro`` is loaded once the window has
+closed, it names them and exits 4.
 
 Kernel builds and caches stay inside the checkout: the program builds its
 CUDA kernels under ``build/kernels``; Triton's and PyTorch's extension
@@ -52,11 +59,12 @@ class Ctx:
     checks: dict              # bench/checks/<cell>.json
     seed: int
     seconds: float
-    trace: bool
+    trace: bool               # report the per-layer metrics
     device: str
     t_proc0: float
     control: str | None = None    # bench/control.py: also read the control's gaps
     readings: dict | None = None  # every number the check read (compare.readings)
+    profile: bool = False     # run the profiler over the mix's traced stretch
 
 
 def banned_modules(modules=None) -> list:
@@ -76,7 +84,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device: str = "cud
     sample, returned under ``readings`` (``bench/control.py``)."""
     import torch
 
-    from bench import compare
+    from bench import compare, host
     from bench.cell import driver, reader
     from bench.model import program_config
 
@@ -84,13 +92,16 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device: str = "cud
     ctx = Ctx(cell=cell, cfg=cfg, conf=conf, traffic=traffic or cell.traffic,
               checks=checks or cell.checks, seed=seed,
               seconds=seconds, trace=trace, device=device, t_proc0=t_proc0,
-              control=control)
+              control=control,
+              profile=trace or any(m["source"] == "device_trace" for m in cell.end_to_end))
     drv = driver(ctx.traffic["driver"], cell.root)
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     state = drv.setup(ctx)
-    rec = drv.window(ctx, state)
+    with host.Collector() as collector:
+        rec = drv.window(ctx, state)
+    print(collector.line(rec.window), file=sys.stderr)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     checks = drv.check(ctx, state, rec)
     del state
@@ -140,6 +151,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from bench import host
     from bench.cell import resolve
 
     cell = resolve(args.workload, ROOT)
@@ -150,6 +162,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     print(f"card: {_card_line()}; peaks 989 TFLOP/s bf16, 3.35 TB/s", file=sys.stderr)
+    print(host.facts(host.bus_id(torch.cuda.get_device_properties(0))), file=sys.stderr)
     out = run_cell(cell, args.seed, args.seconds, bool(args.trace))
     found = banned_modules()
     if found:

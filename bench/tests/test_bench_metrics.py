@@ -107,7 +107,7 @@ def test_starts():
     rec.starts = [{"t0": 0.0, "load_s": 0.2, "first_ts": 0.3, "payload_bytes": 1, "S": 1},
                   {"t0": 0.3, "load_s": 0.3, "first_ts": 0.7, "payload_bytes": 1, "S": 1},
                   {"t0": 0.7, "load_s": 0.2, "first_ts": 1.2, "payload_bytes": 1, "S": 1}]
-    assert reader("replica_start_s")(rec) == pytest.approx(0.5)
+    assert reader("engine.start_s")(rec) == pytest.approx(0.5)
     assert reader("link.load_s")(rec) == pytest.approx(0.25)
     assert reader("engine.first_token_s")(rec) == pytest.approx(0.1)
 
@@ -115,9 +115,23 @@ def test_starts():
 def test_nothing_to_read_reads_nothing():
     rec = Record("serve", {}, window=(0.0, 1.0))
     for name in ("ttft_p90_s", "tpot_p90_ms", "model.decode_step_ms", "model.mfu.chat",
-                 "device.idle_share.chat", "device.idle_share.start", "replica_start_s",
-                 "kernel.paged_copy_roofline", "engine.start_mfu"):
+                 "device.idle_share.chat", "device.idle_share.start", "engine.start_s",
+                 "start_device_ms", "kernel.paged_copy_roofline", "engine.start_mfu"):
         assert reader(name)(rec) is None, name
+
+
+def test_device_ms_per_start_counts_the_starts_inside_the_trace():
+    rec = Record("start", {"reference": "mamba2"}, window=(0.0, 10.0))
+    rec.starts = [{"t0": 0.5, "load_s": 0.2, "first_ts": 1.0},     # before the trace
+                  {"t0": 1.0, "load_s": 0.2, "first_ts": 1.5},
+                  {"t0": 1.5, "load_s": 0.2, "first_ts": 2.0},
+                  {"t0": 2.0, "load_s": 0.2, "first_ts": 3.5}]     # past its end
+    rec.trace = {"t0": 1.0, "t1": 2.5, "busy_s": 0.05, "window_s": 1.5,
+                 "kernels": {"Memcpy HtoD (Pinned -> Device)": [0.04, 2]}}
+    assert len(readings.traced_starts(rec)) == 2
+    assert reader("start_device_ms")(rec) == pytest.approx(25.0)
+    rec.trace = None
+    assert readings.traced_starts(rec) == [] and reader("start_device_ms")(rec) is None
 
 
 def test_idle_from_a_trace():
